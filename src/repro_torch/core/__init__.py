@@ -1,0 +1,12 @@
+# The GIDS data plane of the port: device-resident cache metadata and row
+# store (cache_device.py, device_store.py) behind the tier stack (tiers.py)
+# declared by a DataPlaneSpec (dataplane.py) and driven by the loader
+# (pipeline.py).
+from .accumulator import AccumulatorConfig, DynamicAccessAccumulator
+from .constant_buffer import ConstantBuffer
+from .dataplane import (BuildContext, DataPlane, DataPlaneSpec, TierSpec,
+                        register_tier_kind, tier)
+from .feature_store import GatherReport, TieredFeatureStore
+from .pipeline import Batch, BatchPlan, GIDSDataLoader, LoaderConfig
+from .storage_sim import (INTEL_OPTANE, SAMSUNG_980PRO, SSDSpec,
+                          StorageTimeline)

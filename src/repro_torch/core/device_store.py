@@ -1,0 +1,69 @@
+"""Device-resident GIDS feature tier, the port's counterpart of
+`repro.core.device_store`: cache metadata (`cache_device`) + a row store
+on the device + the `tiered_gather` kernel.
+
+One `device_gather` call runs the cache access, serves every requested row
+from the row store or the staged rows, and then writes the filled lines
+into the row store.  The row store and the metadata are updated IN PLACE
+(the JAX version returns a new store).
+
+The order differs from the reference on purpose: rows are served before
+this call's fills land.  The reference fills first and gathers after, so a
+hit on a line that a later miss of the same call evicts and refills is
+served the later request's row (ROADMAP.md Queue 3).  Here a hit is served
+from the row store only when no earlier request of the call filled its
+line, and otherwise from its staged row, which holds the same bytes; a line
+filled more than once keeps the row of its last filler, the tag that
+stands.  The cache metadata equals the reference's bit for bit, and the
+rows always equal `features[ids]`.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels import ops
+from . import cache_device
+
+
+class DeviceStore(NamedTuple):
+    cache: cache_device.CacheState
+    rows: torch.Tensor              # (num_lines, D) device row storage
+
+
+def init_store(num_lines: int, dim: int, ways: int = 8,
+               dtype: torch.dtype = torch.float32,
+               device: str | torch.device = "cuda") -> DeviceStore:
+    dev = resolve_device(device)
+    return DeviceStore(cache=cache_device.init_cache(num_lines, ways, dev),
+                       rows=torch.zeros((num_lines, dim), dtype=dtype,
+                                        device=dev))
+
+
+def _no_mark(stage: str) -> None:
+    del stage
+
+
+def device_gather(store: DeviceStore, ids: torch.Tensor,
+                  staged: torch.Tensor, future_counts: torch.Tensor,
+                  mark: Callable[[str], None] = _no_mark):
+    """ids: (B,) int32 node ids (-1 pad); staged: (B, D) host-fetched rows
+    of the ids; future_counts: (B,) int32 window-buffer reuse counts.
+    `mark(stage)` is called after each of the three steps ("cache_access",
+    "gather", "fill"), for timing.
+
+    Returns (store, rows (B, D), hit_mask); `store` is the same object,
+    updated in place."""
+    res = cache_device.access(store.cache, ids, future_counts)
+    mark("cache_access")
+    out = ops.tiered_gather(res.serve_slots, store.rows, staged)
+    mark("gather")
+    ops.store_fill(store.rows, res.last_filler, staged)
+    mark("fill")
+    return store, out, res.hits
+
+
+push_window = cache_device.push_window
+count_in_window = cache_device.count_in_window

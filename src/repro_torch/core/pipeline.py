@@ -1,0 +1,160 @@
+"""GIDSDataLoader, the port's subset of `repro.core.pipeline`: the
+two-stage pipeline for the neighbor sampler on a synchronous plane.
+
+  stage 1, `plan_next()` — sampling runs ahead under the accumulator's
+    merge depth, future node lists are pushed into the windowed tier
+    (`admit()`), and the next batch's blocks are popped.
+  stage 2, `execute(plan)` — the tier stack folds over the batch's nodes,
+    the feature rows are gathered, and the batch is priced from its tier
+    split.
+
+On `gids-device` the features of a `Batch` are a tensor on the loader's
+device that never passes through the host; reports and priced floats stay
+host-side Python and numpy, bit-identical to the reference.  Prefetch,
+merged windows, topology, sharding, hosts, faults, feedback, tracing and
+checkpoint state wait for later slices (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Iterator, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.sampling.neighbor import SampledBlocks, host_sample_blocks
+from .accumulator import AccumulatorConfig, DynamicAccessAccumulator
+from .dataplane import DataPlane, DataPlaneSpec
+from .feature_store import GatherReport
+from .storage_sim import INTEL_OPTANE, SSDSpec, StorageTimeline
+
+SAMPLERS = ("neighbor",)
+
+
+@dataclasses.dataclass
+class LoaderConfig:
+    batch_size: int = 4096
+    fanouts: Sequence[int] = (10, 5, 5)       # 3 sampling layers (paper §4.1)
+    sampler: str = "neighbor"
+    data_plane: DataPlaneSpec | str = "gids-device"
+    window_depth: int = 8                      # paper default
+    cache_lines: int = 1 << 15
+    cache_ways: int = 8
+    cbuf_fraction: float = 0.1                 # 10% of dataset (paper default)
+    cbuf_selection: str = "pagerank"
+    target_efficiency: float = 0.95
+    n_ssd: int = 1
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        if self.sampler not in SAMPLERS:
+            raise NotImplementedError(
+                f"sampler {self.sampler!r} is not ported yet (ROADMAP.md "
+                f"Queue 1: LADIES); ported samplers: {SAMPLERS}")
+
+
+@dataclasses.dataclass
+class BatchPlan:
+    """Stage-1 output: the blocks to gather and the merge depth."""
+
+    blocks: SampledBlocks
+    merge_depth: int
+
+
+@dataclasses.dataclass
+class Batch:
+    blocks: SampledBlocks
+    features: torch.Tensor | np.ndarray  # rows for blocks.all_nodes
+    report: GatherReport
+    prep_time_s: float            # modelled data-preparation time
+    merge_depth: int
+    sample_time_s: float = 0.0
+    # critical-path prep; a synchronous plane exposes everything
+    exposed_prep_s: float | None = None
+
+    def __post_init__(self) -> None:
+        if self.exposed_prep_s is None:
+            self.exposed_prep_s = self.prep_time_s
+
+
+class GIDSDataLoader:
+    def __init__(self, graph: CSRGraph, features: np.ndarray,
+                 config: LoaderConfig | None = None,
+                 ssd: SSDSpec = INTEL_OPTANE,
+                 train_ids: np.ndarray | None = None,
+                 device: str | torch.device = "cuda"):
+        self.graph = graph
+        self.config = cfg = config or LoaderConfig()
+        self.rng = np.random.default_rng(cfg.seed)
+        self.train_ids = (train_ids if train_ids is not None
+                          else np.arange(graph.num_nodes))
+        self.spec = DataPlaneSpec.resolve(cfg.data_plane)
+        self.plane: DataPlane = self.spec.build(graph, features, config=cfg,
+                                                device=device)
+        self.store = self.plane.store
+        self.accumulator = DynamicAccessAccumulator(
+            ssd, AccumulatorConfig(target_efficiency=cfg.target_efficiency,
+                                   n_ssd=cfg.n_ssd,
+                                   max_merge_iters=max(cfg.window_depth, 8)))
+        self.timeline = StorageTimeline(ssd, cfg.n_ssd)
+        self._lookahead: deque[SampledBlocks] = deque()
+        self._win_idx = 0   # lookahead entries already pushed to the window
+        self._requests_per_iter = 0
+
+    def _sample_one(self) -> SampledBlocks:
+        cfg = self.config
+        seeds = self.rng.choice(self.train_ids, size=cfg.batch_size,
+                                replace=len(self.train_ids) < cfg.batch_size)
+        return host_sample_blocks(self.graph, seeds, cfg.fanouts, self.rng)
+
+    def _refill_lookahead(self) -> int:
+        """Run sampling ahead until the accumulator's merge depth is
+        covered; a windowed tier floors the depth at its window size."""
+        if not self.plane.lookahead:
+            depth = 1
+        else:
+            depth = self.accumulator.merge_depth(
+                max(self._requests_per_iter, 1))
+            depth = max(depth, self.plane.min_lookahead)
+        while len(self._lookahead) < depth:
+            self._lookahead.append(self._sample_one())
+        self._sync_window()
+        return depth
+
+    def _sync_window(self) -> None:
+        """Keep the windowed tier's look-ahead = first `window_depth`
+        lookahead entries."""
+        wt = self.store.windowed_tier
+        if wt is None or wt.window_depth == 0:
+            return
+        while (len(wt.window) < wt.window_depth
+               and self._win_idx < len(self._lookahead)):
+            self.store.push_window(self._lookahead[self._win_idx].all_nodes)
+            self._win_idx += 1
+
+    def plan_next(self) -> BatchPlan:
+        """Stage 1: sampling + admit-side staging."""
+        depth = self._refill_lookahead()
+        blocks = self._lookahead.popleft()
+        self._win_idx = max(0, self._win_idx - 1)
+        self._requests_per_iter = blocks.num_requests
+        return BatchPlan(blocks=blocks, merge_depth=depth)
+
+    def execute(self, plan: BatchPlan) -> Batch:
+        """Stage 2: data movement + pricing."""
+        blocks = plan.blocks
+        rows, report = self.store.gather(blocks.all_nodes)
+        self.accumulator.update(report.n_requests, report.redirected)
+        outstanding = self.accumulator.outstanding(blocks.num_requests)
+        prep_s = self.plane.price(self.timeline, report, outstanding)
+        return Batch(blocks=blocks, features=rows, report=report,
+                     prep_time_s=prep_s, merge_depth=plan.merge_depth)
+
+    def __iter__(self) -> Iterator[Batch]:
+        while True:
+            yield self.next_batch()
+
+    def next_batch(self) -> Batch:
+        return self.execute(self.plan_next())

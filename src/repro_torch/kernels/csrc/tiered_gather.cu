@@ -1,0 +1,139 @@
+// tiered_gather: out[i] = slots[i] >= 0 ? cache[slots[i]] : staged[i], and
+// store_fill: rows[l] = staged[last_filler[l]] for every line l that a
+// request filled in this call (last_filler[l] >= 0).  Both are pure row
+// copies, so their output is bit-identical to the plain versions for any
+// dtype.
+//
+// tiered_gather replaces the Pallas TPU kernel `tiered_gather`
+// (src/repro/kernels/tiered_gather.py:154; `_single_row_kernel` :76 via
+// `pallas_call` :111, `_kernel` :57 via `pallas_call` :136).  The TPU
+// version prefetches the slot table to SMEM and DMAs one (1, bd) cache row
+// per grid step, padding B with -1 slots and shrinking or padding D.  Here
+// one warp copies one row: the warp reads its slot, picks the cache or the
+// staged row, and its 32 lanes stride over the row in words.  No padding
+// copy is made for any B or D.  store_fill replaces the row-store scatter of
+// src/repro/core/device_store.py:48 (a jnp `.at[].set`, not a Pallas
+// kernel); it runs after the gather, so a hit is always served the bytes
+// the line held before this call's fills landed.
+//
+// Word width: the widest of 16, 8, 4, 2 and 1 bytes that divides the row
+// width in bytes and the alignment of every base pointer.  A 1024-wide f32
+// row is 256 16-byte words; a ragged width falls to a narrower word for the
+// whole row rather than a vector body plus a scalar tail, because row
+// starts are then not 16-byte aligned either.
+//
+// Bound on an H100 SXM (3.35 TB/s): memory, 2 * B * D * itemsize bytes
+// (each served row read once and written once) plus the 4-byte slots.
+//
+// Left for later PRs: cp.async.bulk / TMA row copies (one thread issues a
+// whole 4 KB row), several rows in flight per warp, and fusing store_fill
+// into the staged-row read of the gather.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps, 8 rows per block
+constexpr int kRowsPerBlock = kThreads / 32;
+
+template <typename W>
+__global__ void tiered_gather_kernel(const int32_t* __restrict__ slots,
+                                     const W* __restrict__ cache,
+                                     const W* __restrict__ staged,
+                                     W* __restrict__ out, int64_t B,
+                                     int64_t row_words) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= B) return;
+  const int lane = threadIdx.x & 31;
+  const int32_t s = slots[row];
+  const W* src = s >= 0 ? cache + static_cast<int64_t>(s) * row_words
+                        : staged + row * row_words;
+  W* dst = out + row * row_words;
+  for (int64_t k = lane; k < row_words; k += 32) dst[k] = src[k];
+}
+
+template <typename W>
+__global__ void store_fill_kernel(const int32_t* __restrict__ last_filler,
+                                  const W* __restrict__ staged,
+                                  W* __restrict__ rows, int64_t L,
+                                  int64_t row_words) {
+  const int64_t line =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  if (line >= L) return;
+  const int32_t filler = last_filler[line];
+  if (filler < 0) return;
+  const int lane = threadIdx.x & 31;
+  const W* src = staged + static_cast<int64_t>(filler) * row_words;
+  W* dst = rows + line * row_words;
+  for (int64_t k = lane; k < row_words; k += 32) dst[k] = src[k];
+}
+
+int word_bytes(int64_t row_bytes, const void* a, const void* b,
+               const void* c) {
+  const uintptr_t mix = reinterpret_cast<uintptr_t>(a) |
+                        reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(c) |
+                        static_cast<uintptr_t>(row_bytes);
+  for (int w = 16; w > 1; w >>= 1) {
+    if (mix % w == 0) return w;
+  }
+  return 1;
+}
+
+struct alignas(8) Word8 { uint32_t a, b; };
+
+template <typename W>
+void gather(const void* slots, const void* cache, const void* staged,
+            void* out, int64_t B, int64_t row_bytes, cudaStream_t s) {
+  const unsigned blocks =
+      static_cast<unsigned>((B + kRowsPerBlock - 1) / kRowsPerBlock);
+  tiered_gather_kernel<W><<<blocks, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(slots), static_cast<const W*>(cache),
+      static_cast<const W*>(staged), static_cast<W*>(out), B,
+      row_bytes / static_cast<int64_t>(sizeof(W)));
+}
+
+template <typename W>
+void fill(const void* last_filler, const void* staged, void* rows, int64_t L,
+          int64_t row_bytes, cudaStream_t s) {
+  const unsigned blocks =
+      static_cast<unsigned>((L + kRowsPerBlock - 1) / kRowsPerBlock);
+  store_fill_kernel<W><<<blocks, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(last_filler), static_cast<const W*>(staged),
+      static_cast<W*>(rows), L, row_bytes / static_cast<int64_t>(sizeof(W)));
+}
+
+}  // namespace
+
+// row_bytes = D * itemsize of the (B, D) staged / out and (L, D) cache rows.
+extern "C" int tiered_gather(const void* slots, const void* cache,
+                             const void* staged, void* out, long long B,
+                             long long row_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (word_bytes(row_bytes, cache, staged, out)) {
+    case 16: gather<uint4>(slots, cache, staged, out, B, row_bytes, s); break;
+    case 8: gather<Word8>(slots, cache, staged, out, B, row_bytes, s); break;
+    case 4: gather<uint32_t>(slots, cache, staged, out, B, row_bytes, s); break;
+    case 2: gather<uint16_t>(slots, cache, staged, out, B, row_bytes, s); break;
+    default: gather<uint8_t>(slots, cache, staged, out, B, row_bytes, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// last_filler (L,) int32: request index whose staged row line l must hold
+// after the call, -1 for lines no request filled.  rows is (L, D), updated
+// in place.
+extern "C" int store_fill(const void* last_filler, const void* staged,
+                          void* rows, long long L, long long row_bytes,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (word_bytes(row_bytes, staged, rows, rows)) {
+    case 16: fill<uint4>(last_filler, staged, rows, L, row_bytes, s); break;
+    case 8: fill<Word8>(last_filler, staged, rows, L, row_bytes, s); break;
+    case 4: fill<uint32_t>(last_filler, staged, rows, L, row_bytes, s); break;
+    case 2: fill<uint16_t>(last_filler, staged, rows, L, row_bytes, s); break;
+    default: fill<uint8_t>(last_filler, staged, rows, L, row_bytes, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

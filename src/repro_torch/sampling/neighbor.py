@@ -1,0 +1,90 @@
+"""GraphSAGE uniform neighborhood sampling on the host (paper §2.2.2), the
+port's copy of the numpy half of `repro.sampling.neighbor`.
+
+Blocks are bit-identical to the reference for the same
+`np.random.Generator` state.  `device_sample_blocks` waits for a Philox
+device sampler (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.graph.csr import CSRGraph
+
+
+@dataclasses.dataclass
+class SampledBlocks:
+    """One mini-batch's sampled computational graph.
+
+    seeds:      (B,) the hop-0 target nodes
+    hop_nodes:  list per hop: (B * prod(fanouts[:l]),) source node ids
+                (padded with the destination node itself when degree 0)
+    all_nodes:  sorted unique node ids whose features must be gathered
+    num_requests: total requests across seeds and hops
+    """
+    seeds: np.ndarray
+    hop_nodes: list
+    all_nodes: np.ndarray
+    num_requests: int
+
+
+def sample_hop(graph: CSRGraph, frontier: np.ndarray, fanout: int,
+               rng: np.random.Generator
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One uniform-with-replacement hop; degree-0 destinations self-loop.
+    Returns the flattened sampled ids, the (F, fanout) edge positions read
+    and the (F,) frontier degrees."""
+    start = graph.indptr[frontier]
+    deg = graph.indptr[frontier + 1] - start
+    r = rng.random((frontier.shape[0], fanout))
+    offs = np.floor(r * np.maximum(deg, 1)[:, None]).astype(np.int64)
+    pos = np.minimum(start[:, None] + offs, graph.num_edges - 1)
+    nbr = graph.indices[pos].astype(np.int64)
+    nbr = np.where(deg[:, None] > 0, nbr, frontier[:, None])
+    return nbr.reshape(-1), pos, deg
+
+
+def run_sample_hops(graph: CSRGraph, seeds: np.ndarray,
+                    fanouts: Sequence[int], rng: np.random.Generator,
+                    hop_cb=None) -> tuple[list, np.ndarray, int]:
+    """Frontier loop over `sample_hop`, unique-union of all hops, request
+    counting.  `hop_cb(hop, read_pos, n_frontier)` observes each hop's
+    adjacency reads."""
+    frontier = seeds.astype(np.int64)
+    hop_nodes: list[np.ndarray] = []
+    for hop, f in enumerate(fanouts):
+        nbr, pos, deg = sample_hop(graph, frontier, f, rng)
+        if hop_cb is not None:
+            hop_cb(hop, pos[deg > 0].reshape(-1), len(frontier))
+        hop_nodes.append(nbr)
+        frontier = nbr
+    all_nodes = np.unique(np.concatenate([seeds.astype(np.int64), *hop_nodes]))
+    n_req = int(seeds.shape[0] + sum(h.shape[0] for h in hop_nodes))
+    return hop_nodes, all_nodes, n_req
+
+
+def host_sample_blocks(graph: CSRGraph, seeds: np.ndarray,
+                       fanouts: Sequence[int], rng: np.random.Generator
+                       ) -> SampledBlocks:
+    hop_nodes, all_nodes, n_req = run_sample_hops(graph, seeds, fanouts, rng)
+    return SampledBlocks(seeds=seeds, hop_nodes=hop_nodes,
+                         all_nodes=all_nodes, num_requests=n_req)
+
+
+def device_sample_blocks(*args, **kwargs):
+    raise NotImplementedError(
+        "device_sample_blocks waits for a Philox device sampler "
+        "(ROADMAP.md Queue 1)")
+
+
+def subgraph_sizes(batch: int, fanouts: Sequence[int]) -> int:
+    """Closed-form node count of a padded sampled subgraph:
+    B * (1 + f1 + f1*f2 + ...), equal to `SampledBlocks.num_requests`."""
+    n, prod = batch, batch
+    for f in fanouts:
+        prod *= f
+        n += prod
+    return n
