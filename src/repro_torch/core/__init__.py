@@ -1,12 +1,16 @@
 # The GIDS data plane of the port: device-resident cache metadata and row
 # store (cache_device.py, device_store.py) behind the tier stack (tiers.py)
 # declared by a DataPlaneSpec (dataplane.py) and driven by the loader
-# (pipeline.py).
-from .accumulator import AccumulatorConfig, DynamicAccessAccumulator
+# (pipeline.py); the tiered topology store (topology.py) behind the
+# priced sampler.
+from .accumulator import (AccumulatorConfig, DynamicAccessAccumulator,
+                          MergedWindow, merge_window)
 from .constant_buffer import ConstantBuffer
 from .dataplane import (BuildContext, DataPlane, DataPlaneSpec, TierSpec,
                         register_tier_kind, tier)
-from .feature_store import GatherReport, TieredFeatureStore
+from .feature_store import CoalescedReport, GatherReport, TieredFeatureStore
 from .pipeline import Batch, BatchPlan, GIDSDataLoader, LoaderConfig
 from .storage_sim import (INTEL_OPTANE, SAMSUNG_980PRO, SSDSpec,
                           StorageTimeline)
+from .topology import (TieredTopologyStore, TopologyGatherReport,
+                       admission_names, host_sampling_time, make_admission)

@@ -1,6 +1,6 @@
 """Dynamic storage access accumulator (paper §3.2), the port's copy of the
-per-batch part of `repro.core.accumulator` (the merged-window and deadline
-policies wait for their slices).
+per-batch and merged-window parts of `repro.core.accumulator` (the
+deadline policy waits for the serve slice).
 
 Sampling runs ahead of training and the storage requests of consecutive
 mini-batches merge until the outstanding accesses cross the Eq. 2-3
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from .storage_sim import SSDSpec, required_accesses
 
 
@@ -21,6 +23,65 @@ class AccumulatorConfig:
     n_ssd: int = 1
     max_merge_iters: int = 16       # buffer-memory guard
     ema: float = 0.9                # smoothing for the redirection estimate
+
+
+@dataclasses.dataclass
+class MergedWindow:
+    """The §3.2 merge made concrete: the union of `n_batches` consecutive
+    request lists, deduplicated so each unique row is fetched once.
+
+    unique_nodes: (U,) sorted unique node ids across the window
+    inverse:      (sum_i B_i,) int64 index into `unique_nodes`; batch i's
+                  slice is `inverse[offsets[i]:offsets[i+1]]`
+    offsets:      (n_batches + 1,) slice boundaries into `inverse`
+    """
+
+    unique_nodes: np.ndarray
+    inverse: np.ndarray
+    offsets: np.ndarray
+
+    @property
+    def n_batches(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def n_requests(self) -> int:
+        return int(self.offsets[-1])
+
+    @property
+    def n_unique(self) -> int:
+        return len(self.unique_nodes)
+
+    @property
+    def n_duplicate(self) -> int:
+        """Rows the per-batch path would have fetched again."""
+        return self.n_requests - self.n_unique
+
+    @property
+    def dedup_factor(self) -> float:
+        return self.n_requests / max(self.n_unique, 1)
+
+    def batch_inverse(self, i: int) -> np.ndarray:
+        return self.inverse[self.offsets[i]:self.offsets[i + 1]]
+
+    def batch_multiplicity(self) -> np.ndarray:
+        """Per-unique-node count of merged batches requesting it (each
+        batch's list is already deduplicated)."""
+        return np.bincount(self.inverse, minlength=self.n_unique)
+
+
+def merge_window(node_lists) -> MergedWindow:
+    """Merge consecutive batches' request lists into one deduplicated burst
+    with `np.unique(..., return_inverse=True)` over the concatenation."""
+    lists = [np.asarray(x) for x in node_lists]
+    if not lists:
+        raise ValueError("merge_window needs at least one batch")
+    offsets = np.zeros(len(lists) + 1, np.int64)
+    np.cumsum([len(x) for x in lists], out=offsets[1:])
+    unique, inverse = np.unique(np.concatenate(lists), return_inverse=True)
+    return MergedWindow(unique_nodes=unique,
+                        inverse=inverse.astype(np.int64),
+                        offsets=offsets)
 
 
 class DynamicAccessAccumulator:
@@ -61,3 +122,8 @@ class DynamicAccessAccumulator:
     def outstanding(self, requests_per_iter: int) -> int:
         d = self.merge_depth(requests_per_iter)
         return int(d * requests_per_iter * self.storage_fraction())
+
+    def merge(self, node_lists) -> MergedWindow:
+        """Execute the merge the depth policy only sizes: one deduplicated
+        window whose unique set is gathered once."""
+        return merge_window(node_lists)

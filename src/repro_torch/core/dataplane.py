@@ -1,11 +1,13 @@
 """Declarative data-plane composition, the port's subset of
 `repro.core.dataplane`: `DataPlaneSpec`, the tier-kind registry with the
 `device_store`, `constant_buffer` and `storage` kinds, and the
-`gids-device` preset.  The other presets wait for their slices (ROADMAP.md
-Queue 1).
+`gids-device` preset with its `merge_execute` and `topology` options.  The
+other presets wait for their slices (ROADMAP.md Queue 1); `gids-merged*`
+and `gids-topo*` need the numpy `window_cache` tier of the host planes.
 
-    plane = DataPlaneSpec.preset("gids-device").build(graph, features,
-                                                      device="cuda")
+    spec = DataPlaneSpec.preset("gids-device", merge_execute=True,
+                                topology=True)
+    plane = spec.build(graph, features, device="cuda")
     rows, report = plane.store.gather(node_ids)
 """
 from __future__ import annotations
@@ -114,8 +116,9 @@ _PRESETS: dict[str, "DataPlaneSpec"] = {}
 _UNPORTED_PRESETS = {
     **dict.fromkeys(("gids", "gids-async", "bam", "mmap", "pinned-host"),
                     "host planes"),
-    **dict.fromkeys(("gids-merged", "gids-merged-async"), "merged windows"),
-    **dict.fromkeys(("gids-topo", "gids-topo-merged"), "topology plane"),
+    **dict.fromkeys(("gids-merged", "gids-merged-async", "gids-topo",
+                     "gids-topo-merged"),
+                    "host planes (their window_cache tier)"),
     **dict.fromkeys(("gids-sharded", "gids-merged-sharded", "gids-hosts",
                      "gids-hosts-merged"),
                     "sharded, host, fault and adaptive planes"),
@@ -132,13 +135,32 @@ class DataPlaneSpec:
                "page_fault" — serial fault handling (the mmap baseline)
     lookahead: sampling runs ahead of training under accumulator control;
                False degenerates to synchronous depth-1 sampling.
+    merge_execute: execute whole merged windows instead of single batches
+               (`GIDSDataLoader.execute_window`): the window's requests are
+               deduplicated, the tier stack folds once over the unique set,
+               storage rows sharing a 4 KB line coalesce, and the window is
+               priced as one burst amortized per batch.  Requires
+               "overlapped" pricing.
+    topology:  sampling runs against a `TieredTopologyStore`: every hop's
+               edge-page reads are priced and `Batch.prep_time_s` includes
+               the modelled sampling time.  Blocks and features stay
+               bit-identical.
     """
 
     name: str
     tiers: tuple[TierSpec, ...]
     pricing: str = "overlapped"
     lookahead: bool = True
+    merge_execute: bool = False
+    topology: bool = False
     description: str = ""
+
+    def __post_init__(self) -> None:
+        if self.merge_execute and self.pricing != "overlapped":
+            raise ValueError(
+                f"spec {self.name!r}: merge_execute requires 'overlapped' "
+                f"pricing (got {self.pricing!r}) — a serially-faulting "
+                "plane has no merged burst to price")
 
     def with_(self, **overrides) -> "DataPlaneSpec":
         return dataclasses.replace(self, **overrides)
@@ -220,6 +242,14 @@ class DataPlane:
     @property
     def lookahead(self) -> bool:
         return self.spec.lookahead
+
+    @property
+    def merge_execute(self) -> bool:
+        return self.spec.merge_execute
+
+    @property
+    def topology(self) -> bool:
+        return self.spec.topology
 
     @property
     def min_lookahead(self) -> int:

@@ -16,6 +16,13 @@ line, and otherwise from its staged row, which holds the same bytes; a line
 filled more than once keeps the row of its last filler, the tag that
 stands.  The cache metadata equals the reference's bit for bit, and the
 rows always equal `features[ids]`.
+
+`device_gather_merged` is the same step for a merged window: one cache
+access over the window's U unique ids, one `tiered_gather_unique` per
+batch expanding the unique rows through that batch's inverse, and then one
+fill.  Every expansion reads the row store before the window's fills land,
+so each batch's rows equal `features[batch nodes]`.  (The reference has no
+such function: its merged executor expands the probe's rows with numpy.)
 """
 from __future__ import annotations
 
@@ -63,6 +70,27 @@ def device_gather(store: DeviceStore, ids: torch.Tensor,
     ops.store_fill(store.rows, res.last_filler, staged)
     mark("fill")
     return store, out, res.hits
+
+
+def device_gather_merged(store: DeviceStore, ids_u: torch.Tensor,
+                         staged_u: torch.Tensor, fc_u: torch.Tensor,
+                         inverses, mark: Callable[[str], None] = _no_mark):
+    """ids_u: (U,) int32 unique node ids of a window; staged_u: (U, D)
+    their host-fetched rows; fc_u: (U,) int32 reuse counts in the next
+    window; inverses: one (N_i,) int32 device tensor per batch mapping its
+    rows to unique rows.  `mark` is called after "cache_access", "gather"
+    (all the expansions) and "fill".
+
+    Returns (store, [rows_i (N_i, D)], hit_mask (U,)); `store` is updated
+    in place."""
+    res = cache_device.access(store.cache, ids_u, fc_u)
+    mark("cache_access")
+    outs = [ops.tiered_gather_unique(res.serve_slots, store.rows, staged_u,
+                                     inv) for inv in inverses]
+    mark("gather")
+    ops.store_fill(store.rows, res.last_filler, staged_u)
+    mark("fill")
+    return store, outs, res.hits
 
 
 push_window = cache_device.push_window

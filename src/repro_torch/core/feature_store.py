@@ -4,8 +4,11 @@ an ordered tier stack folded into one `GatherPlan` per batch.
 `gather()` returns the batch's feature rows and a `GatherReport` whose
 per-tier counts feed the storage-timeline pricing.  With a device-store
 tier on top, the rows are that tier's device tensor and never pass through
-the host.  Merged-window gathers and sharded reports wait for their slices
-(ROADMAP.md Queue 1).
+the host.  `gather_merged()` folds the stack once over a merged window's
+unique set; its rows come from the device store's per-batch expansions
+(`device_store.device_gather_merged`), so a merged plane needs a device
+store on top (the numpy cache tiers wait for the host planes, ROADMAP.md
+Queue 1).  Sharded reports wait for the sharded planes.
 """
 from __future__ import annotations
 
@@ -15,9 +18,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .accumulator import MergedWindow
 from .constant_buffer import ConstantBuffer
+from .storage_sim import IO_BYTES, coalesce_lines
 from .tiers import (LATENCY_CLASSES, ConstantBufferTier, GatherPlan, Tier,
-                    build_plan)
+                    build_plan, build_plan_merged)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +66,37 @@ class GatherReport:
             tier_classes=tuple(t.latency_class for t in plan.tiers),
             tier_counts=tuple(int(c) for c in plan.counts()),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class CoalescedReport(GatherReport):
+    """`GatherReport` for a gather executed inside a merged window.  The
+    base fields cover one batch's requests (the per-batch reports) or the
+    window's unique set (the window report that prices the burst); the
+    window-wide merge telemetry is shared by every report of a window:
+
+    window_batches:   batches merged into this window
+    window_requests:  total requests across the window (duplicates included)
+    n_unique:         unique rows in the window (gathered exactly once)
+    n_duplicate:      window_requests - n_unique
+    n_storage_unique: unique rows the fold assigned to the storage tier
+    n_storage_lines:  4 KB IOs after coalescing storage rows sharing a line
+    """
+
+    window_batches: int = 1
+    window_requests: int = 0
+    n_unique: int = 0
+    n_duplicate: int = 0
+    n_storage_unique: int = 0
+    n_storage_lines: int = 0
+
+    @property
+    def dedup_factor(self) -> float:
+        return self.window_requests / max(self.n_unique, 1)
+
+    @property
+    def coalesce_factor(self) -> float:
+        return self.n_storage_unique / max(self.n_storage_lines, 1)
 
 
 class TieredFeatureStore:
@@ -130,10 +166,75 @@ class TieredFeatureStore:
         self.last_plan = plan
         return rows, report
 
+    def gather_merged(self, merged: MergedWindow, io_bytes: int = IO_BYTES
+                      ) -> tuple[list, list[CoalescedReport],
+                                 CoalescedReport]:
+        """Gather a whole merged window through ONE tier fold over its
+        unique request set.  The device store on top stages each unique row
+        once and expands it to every batch on the device; storage-bound
+        unique rows sharing a 4 KB line coalesce into single IOs.
+
+        Returns `(rows_list, reports, window_report)`: per-batch device
+        tensors of rows, per-batch `CoalescedReport`s (batch-local tier
+        split + window telemetry), and the window-level report over the
+        unique set that `StorageTimeline.price_merged_burst` prices."""
+        top = self.tiers[0]
+        if not hasattr(top, "probe_merged"):
+            raise NotImplementedError(
+                f"merged window over top tier {top.name!r}: the port "
+                "executes merged windows through a device store on top "
+                "(ROADMAP.md Queue 1: host planes)")
+        unique = merged.unique_nodes
+        inverses = [merged.batch_inverse(i) for i in range(merged.n_batches)]
+        plan = build_plan_merged(self.tiers, unique,
+                                 merged.batch_multiplicity(), inverses)
+        rows_list = top.last_window_rows
+        bytes_per_row = self.feature_dim * self.itemsize
+        storage_mask = plan.storage_mask()
+        window_stats = dict(
+            window_batches=merged.n_batches,
+            window_requests=merged.n_requests,
+            n_unique=merged.n_unique,
+            n_duplicate=merged.n_duplicate,
+            n_storage_unique=int(storage_mask.sum()),
+            n_storage_lines=coalesce_lines(unique[storage_mask],
+                                           bytes_per_row, io_bytes),
+        )
+        tier_meta = dict(
+            bytes_per_row=bytes_per_row,
+            tier_names=tuple(t.name for t in plan.tiers),
+            tier_classes=tuple(t.latency_class for t in plan.tiers),
+        )
+        window_report = CoalescedReport(
+            n_requests=merged.n_unique,
+            tier_counts=tuple(int(c) for c in plan.counts()),
+            **tier_meta, **window_stats)
+        reports = []
+        for inv in inverses:
+            counts = np.bincount(plan.assignment[inv],
+                                 minlength=len(plan.tiers))
+            reports.append(CoalescedReport(
+                n_requests=len(inv),
+                tier_counts=tuple(int(c) for c in counts),
+                **tier_meta, **window_stats))
+        self.last_plan = plan
+        return rows_list, reports, window_report
+
     def push_window(self, future_nodes: np.ndarray) -> None:
         """Announce a future batch to every tier (window pinning etc.)."""
         for t in self.tiers:
             t.admit(future_nodes)
+
+    def retire_window(self, n_batches: int) -> None:
+        """Drop the windowed tier's look-ahead entries for `n_batches`
+        consumed batches.  The merged executor calls this (then re-syncs
+        the window) BEFORE `gather_merged`, so the one merged access pins
+        its fills by the NEXT window's reuse."""
+        wt = self.windowed_tier
+        if wt is None or wt.window_depth == 0:
+            return
+        for _ in range(min(n_batches, len(wt.window))):
+            wt.window.popleft()
 
     def reset(self) -> None:
         for t in self.tiers:

@@ -8,11 +8,20 @@ two-stage pipeline for the neighbor sampler on a synchronous plane.
     the feature rows are gathered, and the batch is priced from its tier
     split.
 
+On a merged plane (`DataPlaneSpec.merge_execute`) stage 2 runs over a whole
+window of plans (`plan_window()` / `execute_window()`): the window's
+request lists are deduplicated into a `MergedWindow`, the tier stack folds
+once over the unique set, the device store stages each unique row once
+and expands it per batch on the device, and the window is priced as one
+line-coalesced burst amortized across its batches.  On a topology plane
+(`DataPlaneSpec.topology`) sampling runs against a `TieredTopologyStore`
+and each batch's priced sampling time rides on its `prep_time_s`.
+
 On `gids-device` the features of a `Batch` are a tensor on the loader's
 device that never passes through the host; reports and priced floats stay
 host-side Python and numpy, bit-identical to the reference.  Prefetch,
-merged windows, topology, sharding, hosts, faults, feedback, tracing and
-checkpoint state wait for later slices (ROADMAP.md Queue 1).
+sharding, hosts, faults, feedback, tracing and checkpoint state wait for
+later slices (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -25,10 +34,12 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.sampling.neighbor import SampledBlocks, host_sample_blocks
+from repro_torch.sampling.tiered import tiered_sample_blocks
 from .accumulator import AccumulatorConfig, DynamicAccessAccumulator
 from .dataplane import DataPlane, DataPlaneSpec
 from .feature_store import GatherReport
 from .storage_sim import INTEL_OPTANE, SSDSpec, StorageTimeline
+from .topology import TieredTopologyStore
 
 SAMPLERS = ("neighbor",)
 
@@ -46,6 +57,12 @@ class LoaderConfig:
     cbuf_selection: str = "pagerank"
     target_efficiency: float = 0.95
     n_ssd: int = 1
+    # topology plane: fraction of the CSR edge pages resident in device
+    # memory / pinned host memory (the rest is storage-backed), and the
+    # admission policy ranking pages into the budgets (core/topology.py)
+    topo_admission: str = "degree"
+    topo_gpu_fraction: float = 0.25
+    topo_host_fraction: float = 0.5
     seed: int = 0
 
     def __post_init__(self) -> None:
@@ -68,8 +85,10 @@ class Batch:
     blocks: SampledBlocks
     features: torch.Tensor | np.ndarray  # rows for blocks.all_nodes
     report: GatherReport
-    prep_time_s: float            # modelled data-preparation time
+    prep_time_s: float            # modelled data-preparation time; on a
+                                  # topology plane it includes sampling
     merge_depth: int
+    # modelled sampling time folded into prep_time_s (0 without topology)
     sample_time_s: float = 0.0
     # critical-path prep; a synchronous plane exposes everything
     exposed_prep_s: float | None = None
@@ -99,26 +118,48 @@ class GIDSDataLoader:
                                    n_ssd=cfg.n_ssd,
                                    max_merge_iters=max(cfg.window_depth, 8)))
         self.timeline = StorageTimeline(ssd, cfg.n_ssd)
+        # topology plane: sampling reads a tiered adjacency store and is
+        # priced per hop; the store owns its own StorageTimeline (the
+        # edge-page namespace drains separate queues)
+        self.topo: TieredTopologyStore | None = None
+        if self.plane.topology:
+            self.topo = TieredTopologyStore.from_graph(
+                graph, admission=cfg.topo_admission,
+                gpu_fraction=cfg.topo_gpu_fraction,
+                host_fraction=cfg.topo_host_fraction,
+                ssd=ssd, n_ssd=cfg.n_ssd, seed=cfg.seed, device=device)
         self._lookahead: deque[SampledBlocks] = deque()
         self._win_idx = 0   # lookahead entries already pushed to the window
+        # a merged plane stages a whole executed window here
+        self._merged_ready: deque[Batch] = deque()
         self._requests_per_iter = 0
 
     def _sample_one(self) -> SampledBlocks:
         cfg = self.config
         seeds = self.rng.choice(self.train_ids, size=cfg.batch_size,
                                 replace=len(self.train_ids) < cfg.batch_size)
+        if self.topo is not None:
+            # same math, same RNG stream: blocks bit-identical to the host
+            # sampler, plus per-hop priced TopologyGatherReports
+            return tiered_sample_blocks(self.graph, self.topo, seeds,
+                                        cfg.fanouts, self.rng)
         return host_sample_blocks(self.graph, seeds, cfg.fanouts, self.rng)
 
     def _refill_lookahead(self) -> int:
         """Run sampling ahead until the accumulator's merge depth is
-        covered; a windowed tier floors the depth at its window size."""
+        covered; a windowed tier floors the depth at its window size.  A
+        merged plane samples one cache-window PAST the merge window, so
+        the merged access can pin its fills by the next window's reuse."""
         if not self.plane.lookahead:
             depth = 1
         else:
             depth = self.accumulator.merge_depth(
                 max(self._requests_per_iter, 1))
             depth = max(depth, self.plane.min_lookahead)
-        while len(self._lookahead) < depth:
+        sample_ahead = depth
+        if self.plane.merge_execute:
+            sample_ahead = depth + self.plane.min_lookahead
+        while len(self._lookahead) < sample_ahead:
             self._lookahead.append(self._sample_one())
         self._sync_window()
         return depth
@@ -148,13 +189,57 @@ class GIDSDataLoader:
         rows, report = self.store.gather(blocks.all_nodes)
         self.accumulator.update(report.n_requests, report.redirected)
         outstanding = self.accumulator.outstanding(blocks.num_requests)
-        prep_s = self.plane.price(self.timeline, report, outstanding)
+        gather_s = self.plane.price(self.timeline, report, outstanding)
+        # a topology plane priced the sampling stage when the blocks were
+        # drawn (plan_next); prep covers both
+        sample_s = float(getattr(blocks, "sample_time_s", 0.0))
         return Batch(blocks=blocks, features=rows, report=report,
-                     prep_time_s=prep_s, merge_depth=plan.merge_depth)
+                     prep_time_s=gather_s + sample_s,
+                     merge_depth=plan.merge_depth, sample_time_s=sample_s)
+
+    def plan_window(self) -> list[BatchPlan]:
+        """Stage 1 for a whole merged window: plan `merge_depth`
+        consecutive batches (the depth the first plan reports)."""
+        plans = [self.plan_next()]
+        if self.plane.merge_execute:
+            while len(plans) < plans[0].merge_depth:
+                plans.append(self.plan_next())
+        return plans
+
+    def execute_window(self, plans: Sequence[BatchPlan]) -> list[Batch]:
+        """Stage 2 for a merged window: dedupe the plans' request lists into
+        one `MergedWindow`, fold the tier stack once over the unique set,
+        stage each unique row once and expand it per batch on the device,
+        and price the window as one line-coalesced storage burst amortized
+        equally across its batches."""
+        merged = self.accumulator.merge([p.blocks.all_nodes for p in plans])
+        # retire the consumed window entries and stage the NEXT window's:
+        # the one merged access pins its fills by the upcoming reuse
+        self.store.retire_window(len(plans))
+        self._sync_window()
+        rows_list, reports, window_report = self.store.gather_merged(merged)
+        # one telemetry update per window: the unique split
+        self.accumulator.update(window_report.n_requests,
+                                window_report.redirected)
+        burst_s = self.timeline.price_merged_burst(window_report)
+        prep = burst_s / len(plans)
+        out = []
+        for p, rows, rep in zip(plans, rows_list, reports, strict=True):
+            # each batch's own priced sampling time rides on its share
+            sample_s = float(getattr(p.blocks, "sample_time_s", 0.0))
+            out.append(Batch(blocks=p.blocks, features=rows, report=rep,
+                             prep_time_s=prep + sample_s,
+                             merge_depth=len(plans), sample_time_s=sample_s))
+        return out
 
     def __iter__(self) -> Iterator[Batch]:
         while True:
             yield self.next_batch()
 
     def next_batch(self) -> Batch:
+        if self.plane.merge_execute:
+            if not self._merged_ready:
+                self._merged_ready.extend(
+                    self.execute_window(self.plan_window()))
+            return self._merged_ready.popleft()
         return self.execute(self.plan_next())

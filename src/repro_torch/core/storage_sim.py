@@ -4,8 +4,8 @@ of the unsharded, fault-free part of `repro.core.storage_sim`.
 The constants are the reference's, verbatim, so every priced time is
 bit-identical to it.  They are the paper's A100 and SSD figures: the prices
 are a model of that system, not a measurement of the card the port runs on.
-Sharded, host, topology and fault pricing wait for their slices (ROADMAP.md
-Queue 1).
+Sharded, host and fault pricing wait for their slices (ROADMAP.md Queue 1:
+sharded, host, fault and adaptive planes).
 
 Units: seconds, bytes.  IO granularity is the paper's 4 KB cache line.
 """
@@ -43,6 +43,16 @@ HBM_BW = 1555e9              # A100 HBM2 (Table 1)
 # fault plus readahead pollution); calibrated so the mmap baseline reproduces
 # the paper's Fig. 5 stage breakdown shape.
 MMAP_FAULT_OVERHEAD_S = 4e-6
+# -- topology (sampling-stage) constants ---------------------------------------
+# CPU-sampling baseline (paper Fig. 3/7: the "CPU sampling" path): adjacency
+# reads are dependent pointer chases — one random DRAM access each — spread
+# across a thread pool, and every hop ends in a host->device handoff.
+HOST_RANDOM_READ_S = 100e-9  # random DRAM access (row miss + pointer chase)
+CPU_SAMPLE_THREADS = 16
+HOP_SYNC_S = 10e-6           # per-hop CPU->GPU handoff (copy launch + sync)
+# GPU-initiated sampling pays one kernel launch per hop; device reads inside
+# the hop are covered by the tier terms of `price_topology_hop`.
+TOPO_HOP_LAUNCH_S = 5e-6
 
 
 @dataclasses.dataclass
@@ -70,6 +80,41 @@ def required_accesses(spec: SSDSpec, target_efficiency: float,
     rho = min(target_efficiency, 0.999)
     t_fixed = spec.latency_s + T_INIT_SW + T_TERM
     return int(np.ceil(rho * spec.peak_iops * n_ssd * t_fixed / (1.0 - rho)))
+
+
+def coalesce_lines(node_ids: np.ndarray, bytes_per_row: int,
+                   io_bytes: int = IO_BYTES) -> int:
+    """Number of `io_bytes`-granule IOs needed to fetch the given storage
+    rows, laid out contiguously by node id.  Rows narrower than one line
+    share it (`rows_per_line = io_bytes // bytes_per_row`, row-aligned);
+    rows at or above the line size cost `ceil(bytes_per_row / io_bytes)`
+    IOs each.  Unsharded only: shard-local coalescing waits for the sharded
+    planes (ROADMAP.md Queue 1)."""
+    n = len(node_ids)
+    if n == 0 or bytes_per_row <= 0:
+        return 0
+    if bytes_per_row >= io_bytes:
+        return n * int(-(-bytes_per_row // io_bytes))
+    rows_per_line = io_bytes // bytes_per_row
+    if rows_per_line <= 1:
+        return n
+    lines = np.asarray(node_ids, np.int64) // rows_per_line
+    return len(np.unique(lines))
+
+
+def host_sampling_hop_time(n_edge_reads: int, n_frontier: int,
+                           id_bytes: int = 8,
+                           threads: int = CPU_SAMPLE_THREADS) -> float:
+    """One hop of the CPU-sampling baseline: `n_edge_reads` sampled
+    adjacency words plus the indptr pair per frontier node, each a random
+    DRAM access amortized over `threads`; the sampled block ships to the
+    device over PCIe and the hop ends in one host->device handoff."""
+    if n_edge_reads <= 0 and n_frontier <= 0:
+        return 0.0
+    reads = n_edge_reads + 2 * n_frontier
+    t_cpu = reads * HOST_RANDOM_READ_S / max(threads, 1)
+    t_xfer = n_edge_reads * id_bytes / PCIE_GEN4_BW
+    return t_cpu + t_xfer + HOP_SYNC_S
 
 
 def overlap_exposed(prep_s: float, compute_s: float) -> float:
@@ -104,6 +149,46 @@ class StorageTimeline:
         """Exposed prep when batch k+1's preparation overlaps batch k's
         compute (§3.2): max(0, prep_s - compute_s)."""
         return overlap_exposed(prep_s, compute_s)
+
+    def price_merged_burst(self, report, outstanding: int | None = None,
+                           io_bytes: int = IO_BYTES) -> float:
+        """Price a merged window's gather as ONE storage burst from its
+        window-level `CoalescedReport` over the unique request set: per-row
+        byte accounting as `gids_batch_time`, the SSD transfer capped at
+        line granularity (`n_storage_lines * io_bytes`), and the Eq. 2-3
+        efficiency from the burst's own unique storage rows.  Returns TOTAL
+        window seconds; the caller amortizes per batch."""
+        bpr = report.bytes_per_row
+        n_rows = report.n_storage
+        lines = getattr(report, "n_storage_lines", n_rows)
+        if outstanding is None:
+            outstanding = max(n_rows, 1)
+        eff = model_burst(self.spec, max(outstanding, 1),
+                          self.n_ssd).efficiency
+        ssd_bytes = min(n_rows * bpr, lines * io_bytes) if n_rows else 0
+        t_ssd = ssd_bytes / (self.spec.peak_bw * self.n_ssd * eff) \
+            if n_rows else 0.0
+        n_host, n_hbm = report.n_host_hits, report.n_hbm_hits
+        t_host = n_host * bpr / HOST_DRAM_BW if n_host else 0.0
+        t_hbm = n_hbm * bpr / HBM_BW if n_hbm else 0.0
+        t_pcie = (ssd_bytes + n_host * bpr) / PCIE_GEN4_BW
+        return max(t_ssd, t_host, t_hbm, t_pcie)
+
+    def price_topology_hop(self, report, io_bytes: int = IO_BYTES) -> float:
+        """Price one GPU-initiated sampling hop from its
+        `TopologyGatherReport` (unique 4 KB edge pages by tier): HBM pages
+        at HBM bandwidth, storage pages as one Eq. 2-3 burst at the hop's
+        own page count, pinned-host pages only inside the combined
+        host+storage PCIe cap, plus one kernel launch per hop."""
+        n_hbm, n_host, n_sto = report.pages_by_tier
+        if report.n_edge_reads <= 0:
+            return 0.0
+        t_hbm = n_hbm * io_bytes / HBM_BW
+        t_sto = 0.0
+        if n_sto:
+            t_sto = model_burst(self.spec, n_sto, self.n_ssd).elapsed_s
+        t_pcie = (n_host + n_sto) * io_bytes / PCIE_GEN4_BW
+        return TOPO_HOP_LAUNCH_S + max(t_hbm, t_sto, t_pcie)
 
     def gids_batch_time(self, n_storage: int, n_host: int, n_hbm: int,
                         feat_bytes: int, outstanding: int) -> float:

@@ -3,7 +3,8 @@
 the gather plan that folds a tier stack over one batch.
 
   DeviceStoreTier    — device cache metadata + device row store + the
-                       `tiered_gather` kernel, via `device_store`
+                       `tiered_gather` kernel, via `device_store`; a merged
+                       window goes through `tiered_gather_unique`
   ConstantBufferTier — `ConstantBuffer` (pinned host memory)
   StorageTier        — the storage backstop (always hits)
 
@@ -76,6 +77,8 @@ class DeviceStoreTier(_TierBase):
     a non-blocking copy on CUDA) and gathers every requested row on the
     device; `last_rows` holds them as a device tensor, the real data path
     of this tier.  No shape bucket is needed: requests are not padded.
+    A merged-window probe (`probe_merged`) stages the window's unique rows
+    once and leaves one device tensor per batch in `last_window_rows`.
     On CUDA, `last_split_ms` holds the last probe's time per stage: host
     staging on the host clock, the rest between CUDA events.
     """
@@ -94,6 +97,7 @@ class DeviceStoreTier(_TierBase):
         self.window: deque[np.ndarray] = deque()
         self.name = name
         self.last_rows: torch.Tensor | None = None
+        self.last_window_rows: list[torch.Tensor] | None = None
         self.last_split_ms: dict[str, float] = {}
         self._pinned: torch.Tensor | None = None
         self._staged_copy: torch.cuda.Event | None = None
@@ -137,7 +141,19 @@ class DeviceStoreTier(_TierBase):
             self.window.popleft()
         return self._probe_rows(node_ids)
 
-    def _probe_rows(self, node_ids: np.ndarray) -> np.ndarray:
+    def probe_merged(self, node_ids: np.ndarray, multiplicity: np.ndarray,
+                     inverses: list[np.ndarray]) -> np.ndarray:
+        """Merged-window probe: one deduplicated device access for the whole
+        window (the caller has already retired the consumed look-ahead
+        entries).  As in the reference, the metadata takes one reservation
+        per hit, not the full multiplicity.  `inverses` holds one index
+        array per batch into `node_ids`; each batch's rows land in
+        `last_window_rows`."""
+        del multiplicity
+        return self._probe_rows(node_ids, inverses)
+
+    def _probe_rows(self, node_ids: np.ndarray,
+                    inverses: list[np.ndarray] | None = None) -> np.ndarray:
         ids = np.asarray(node_ids).astype(np.int32)
         fc = self._future_counts(node_ids)
         events: dict[str, torch.cuda.Event] = {}
@@ -157,10 +173,20 @@ class DeviceStoreTier(_TierBase):
             self._staged_copy.record()
         ids_d = torch.from_numpy(ids).to(self.device, non_blocking=True)
         fc_d = torch.from_numpy(fc).to(self.device, non_blocking=True)
-        mark("h2d")
-        _, rows, hits = device_store.device_gather(
-            self.store, ids_d, staged, fc_d, mark=mark)
-        self.last_rows = rows
+        if inverses is None:
+            mark("h2d")
+            _, rows, hits = device_store.device_gather(
+                self.store, ids_d, staged, fc_d, mark=mark)
+            self.last_rows, self.last_window_rows = rows, None
+        else:
+            # one int64 upload for the window, cast to int32 on the device
+            inv_d = torch.from_numpy(np.concatenate(inverses)).to(
+                self.device, non_blocking=True).to(torch.int32)
+            mark("h2d")
+            _, rows_list, hits = device_store.device_gather_merged(
+                self.store, ids_d, staged, fc_d,
+                torch.split(inv_d, [len(i) for i in inverses]), mark=mark)
+            self.last_rows, self.last_window_rows = None, rows_list
         hit_mask = hits.cpu().numpy()      # waits for the whole probe
         if events:
             order = ["start", "h2d", "cache_access", "gather", "fill"]
@@ -192,7 +218,7 @@ class DeviceStoreTier(_TierBase):
     def reset(self) -> None:
         self.store = device_store.init_store(*self._init_args)
         self.window.clear()
-        self.last_rows = None
+        self.last_rows = self.last_window_rows = None
 
 
 class ConstantBufferTier(_TierBase):
@@ -241,10 +267,11 @@ class StorageTier(_TierBase):
 
 @dataclasses.dataclass
 class GatherPlan:
-    """Per-request tier assignment for one batch: `assignment[i]` indexes
-    the tier that serves request i.  Folding guarantees a partition.
-    Storage shards (`shard`, `remote`) wait for the sharded planes
-    (ROADMAP.md Queue 1)."""
+    """Per-request tier assignment for one batch (or one merged window's
+    unique set): `assignment[i]` indexes the tier that serves request i.
+    Folding guarantees a partition.  Storage shards (`shard`, `remote`)
+    wait for the sharded planes (ROADMAP.md Queue 1); the storage namespace
+    is one shard."""
 
     node_ids: np.ndarray
     assignment: np.ndarray          # (B,) int8 index into `tiers`
@@ -261,6 +288,17 @@ class GatherPlan:
         return bool(((a >= 0) & (a < len(self.tiers))).all()
                     and int(self.counts().sum()) == len(self.node_ids))
 
+    def storage_mask(self) -> np.ndarray:
+        """Requests whose serving tier is storage-class."""
+        classes = np.array([t.latency_class == "storage" for t in self.tiers])
+        return classes[self.assignment]
+
+    @property
+    def n_shards(self) -> int:
+        """Shard count of the storage namespace: 1 until the sharded planes
+        are ported."""
+        return 1
+
     def kernel_slots(self, tier_index: int = 0) -> np.ndarray:
         """Slot array for `ops.tiered_gather`: requests served by the device
         tier carry their cache line, everything else -1 (staged row i).
@@ -275,10 +313,19 @@ class GatherPlan:
         return slots
 
 
-def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray) -> GatherPlan:
+def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray,
+               multiplicity: np.ndarray | None = None,
+               inverses: list[np.ndarray] | None = None) -> GatherPlan:
     """Fold the ordered tier stack over one batch: each tier is offered the
     requests every faster tier declined; its hits are claimed.  The last
-    tier must be a backstop (probe everything True)."""
+    tier must be a backstop (probe everything True).
+
+    With `multiplicity` the fold is a merged-window one over a window's
+    UNIQUE request set: a tier with `probe_merged` (the device store) takes
+    the window in one pass, together with the per-batch `inverses` into
+    `node_ids` that expand its rows; other tiers see a plain probe.  Only
+    the top tier is offered the whole unique set, so a `probe_merged` tier
+    must be first."""
     node_ids = np.asarray(node_ids)
     n = len(node_ids)
     assignment = np.full(n, -1, np.int8)
@@ -287,7 +334,16 @@ def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray) -> GatherPlan:
         idx = np.nonzero(unclaimed)[0]
         if len(idx) == 0:
             break
-        hits = np.asarray(tier.probe(node_ids[idx]), dtype=bool)
+        if multiplicity is not None and hasattr(tier, "probe_merged"):
+            if ti != 0:
+                raise NotImplementedError(
+                    f"merged window over tier {tier.name!r} at position "
+                    f"{ti}: the port's merged executor needs the device "
+                    "store on top (ROADMAP.md Queue 1: host planes)")
+            hits = tier.probe_merged(node_ids, multiplicity, inverses)
+        else:
+            hits = tier.probe(node_ids[idx])
+        hits = np.asarray(hits, dtype=bool)
         took = idx[hits]
         assignment[took] = ti
         unclaimed[took] = False
@@ -298,3 +354,13 @@ def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray) -> GatherPlan:
             "must end in a storage backstop")
     return GatherPlan(node_ids=node_ids, assignment=assignment,
                       tiers=tuple(tiers))
+
+
+def build_plan_merged(tiers: Sequence[Tier], unique_nodes: np.ndarray,
+                      multiplicity: np.ndarray,
+                      inverses: list[np.ndarray]) -> GatherPlan:
+    """Dedup-aware fold for a merged window: `build_plan` over the unique
+    set with the window multiplicity and the per-batch inverses.  Same
+    partition guarantee."""
+    return build_plan(tiers, unique_nodes, multiplicity=multiplicity,
+                      inverses=inverses)

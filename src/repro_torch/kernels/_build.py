@@ -28,12 +28,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("segment_mean", "tiered_gather", "cache_access")
+SOURCES = ("segment_mean", "tiered_gather", "cache_access",
+           "frontier_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
-    ("segment_mean", "tiered_gather", "store_fill", "cache_access"), 0)
+    ("segment_mean", "tiered_gather", "store_fill", "cache_access",
+     "tiered_gather_unique", "frontier_gather"), 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 

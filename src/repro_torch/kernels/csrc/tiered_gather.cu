@@ -1,6 +1,9 @@
-// tiered_gather: out[i] = slots[i] >= 0 ? cache[slots[i]] : staged[i], and
+// tiered_gather: out[i] = slots[i] >= 0 ? cache[slots[i]] : staged[i],
+// tiered_gather_unique: out[n] = the same over U unique rows, expanded by
+// inverse: u = inverse[n], out[n] = slots[u] >= 0 ? cache[slots[u]]
+// : staged[u], and
 // store_fill: rows[l] = staged[last_filler[l]] for every line l that a
-// request filled in this call (last_filler[l] >= 0).  Both are pure row
+// request filled in this call (last_filler[l] >= 0).  All three are pure row
 // copies, so their output is bit-identical to the plain versions for any
 // dtype.
 //
@@ -14,7 +17,19 @@
 // copy is made for any B or D.  store_fill replaces the row-store scatter of
 // src/repro/core/device_store.py:48 (a jnp `.at[].set`, not a Pallas
 // kernel); it runs after the gather, so a hit is always served the bytes
-// the line held before this call's fills landed.
+// the line held before this call's fills land.
+//
+// tiered_gather_unique replaces the Pallas TPU kernel `tiered_gather_unique`
+// (src/repro/kernels/tiered_gather.py:235; `_unique_row_kernel` via
+// `pallas_call` :226, whose index maps send the scalar-prefetched inverse
+// into both the cache-row and the staged-tile DMA, or the blocked gather of
+// the U unique rows followed by a `jnp.take`).  Here one warp writes one
+// output row n: it reads u = inverse[n] and s = slots[u] and copies the
+// cache row or unique staged row u.  The duplicated (N, D) staged buffer is
+// never built and the unique rows are not gathered first: each output row
+// is read once from where it lies.  The merged-window executor launches it
+// once per batch of a window, over the window's U unique rows, all before
+// the window's store_fill.
 //
 // Word width: the widest of 16, 8, 4, 2 and 1 bytes that divides the row
 // width in bytes and the alignment of every base pointer.  A 1024-wide f32
@@ -23,11 +38,15 @@
 // starts are then not 16-byte aligned either.
 //
 // Bound on an H100 SXM (3.35 TB/s): memory, 2 * B * D * itemsize bytes
-// (each served row read once and written once) plus the 4-byte slots.
+// (each served row read once and written once) plus the 4-byte slots; for
+// tiered_gather_unique 2 * N * D * itemsize plus 8 * N bytes (the inverse
+// and one slot per output row), about 67 MB or 0.020 ms for one batch of
+// N = 8192 1024-d f32 rows.
 //
 // Left for later PRs: cp.async.bulk / TMA row copies (one thread issues a
-// whole 4 KB row), several rows in flight per warp, and fusing store_fill
-// into the staged-row read of the gather.
+// whole 4 KB row), several rows in flight per warp, fusing store_fill into
+// the staged-row read of the gather, and one launch per window instead of
+// one per batch (a batch index per output row).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +68,25 @@ __global__ void tiered_gather_kernel(const int32_t* __restrict__ slots,
   const int32_t s = slots[row];
   const W* src = s >= 0 ? cache + static_cast<int64_t>(s) * row_words
                         : staged + row * row_words;
+  W* dst = out + row * row_words;
+  for (int64_t k = lane; k < row_words; k += 32) dst[k] = src[k];
+}
+
+template <typename W>
+__global__ void tiered_gather_unique_kernel(const int32_t* __restrict__ slots,
+                                            const int32_t* __restrict__ inverse,
+                                            const W* __restrict__ cache,
+                                            const W* __restrict__ staged,
+                                            W* __restrict__ out, int64_t N,
+                                            int64_t row_words) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t u = inverse[row];
+  const int32_t s = slots[u];
+  const W* src = s >= 0 ? cache + static_cast<int64_t>(s) * row_words
+                        : staged + u * row_words;
   W* dst = out + row * row_words;
   for (int64_t k = lane; k < row_words; k += 32) dst[k] = src[k];
 }
@@ -95,6 +133,18 @@ void gather(const void* slots, const void* cache, const void* staged,
 }
 
 template <typename W>
+void gather_unique(const void* slots, const void* inverse, const void* cache,
+                   const void* staged, void* out, int64_t N,
+                   int64_t row_bytes, cudaStream_t s) {
+  const unsigned blocks =
+      static_cast<unsigned>((N + kRowsPerBlock - 1) / kRowsPerBlock);
+  tiered_gather_unique_kernel<W><<<blocks, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(inverse),
+      static_cast<const W*>(cache), static_cast<const W*>(staged),
+      static_cast<W*>(out), N, row_bytes / static_cast<int64_t>(sizeof(W)));
+}
+
+template <typename W>
 void fill(const void* last_filler, const void* staged, void* rows, int64_t L,
           int64_t row_bytes, cudaStream_t s) {
   const unsigned blocks =
@@ -117,6 +167,35 @@ extern "C" int tiered_gather(const void* slots, const void* cache,
     case 4: gather<uint32_t>(slots, cache, staged, out, B, row_bytes, s); break;
     case 2: gather<uint16_t>(slots, cache, staged, out, B, row_bytes, s); break;
     default: gather<uint8_t>(slots, cache, staged, out, B, row_bytes, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slots (U,) and inverse (N,) int32, cache (L, D), staged (U, D), out (N, D);
+// row_bytes = D * itemsize.  Every inverse entry must index a unique row.
+extern "C" int tiered_gather_unique(const void* slots, const void* inverse,
+                                    const void* cache, const void* staged,
+                                    void* out, long long N,
+                                    long long row_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (word_bytes(row_bytes, cache, staged, out)) {
+    case 16:
+      gather_unique<uint4>(slots, inverse, cache, staged, out, N, row_bytes, s);
+      break;
+    case 8:
+      gather_unique<Word8>(slots, inverse, cache, staged, out, N, row_bytes, s);
+      break;
+    case 4:
+      gather_unique<uint32_t>(slots, inverse, cache, staged, out, N, row_bytes,
+                              s);
+      break;
+    case 2:
+      gather_unique<uint16_t>(slots, inverse, cache, staged, out, N, row_bytes,
+                              s);
+      break;
+    default:
+      gather_unique<uint8_t>(slots, inverse, cache, staged, out, N, row_bytes,
+                             s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,8 @@
 CPU tensors take the plain PyTorch version in `ref`; CUDA tensors take the
 hand-written kernel, which raises on what it does not accept.  There is no
 switch between the two and no fallback: the device decides.  Counterpart
-of `repro.kernels.ops` (`tiered_gather_unique`, `tiered_frontier_gather`
-and `flash_attention` wait for later slices, ROADMAP.md Queue 2).
+of `repro.kernels.ops` (`flash_attention` waits for the LM slice,
+ROADMAP.md Queue 2).
 """
 from __future__ import annotations
 
@@ -24,6 +24,31 @@ def tiered_gather(slots: torch.Tensor, cache: torch.Tensor,
     if _on_cpu(slots, cache, staged):
         return ref.tiered_gather_ref(slots, cache, staged)
     return _tiered_gather.tiered_gather(slots, cache, staged)
+
+
+def tiered_gather_unique(slots: torch.Tensor, cache: torch.Tensor,
+                         staged: torch.Tensor,
+                         inverse: torch.Tensor) -> torch.Tensor:
+    """Gather over a merged window's U unique rows, expanded to one batch's
+    N rows: `slots`/`staged` cover the unique rows, `inverse` (N,) int32
+    maps each output row to its unique row (the merged-window executor,
+    `core.device_store.device_gather_merged`)."""
+    if _on_cpu(slots, cache, staged, inverse):
+        return ref.tiered_gather_unique_ref(slots, cache, staged, inverse)
+    return _tiered_gather.tiered_gather_unique(slots, cache, staged, inverse)
+
+
+def tiered_frontier_gather(page_slots: torch.Tensor, hot: torch.Tensor,
+                           staged: torch.Tensor, inverse: torch.Tensor,
+                           offsets: torch.Tensor) -> torch.Tensor:
+    """One sampling hop's adjacency words: read n is word offsets[n] of
+    unique page inverse[n], served from the hot pages or its staged page
+    (`core.topology.TieredTopologyStore.frontier_gather`)."""
+    if _on_cpu(page_slots, hot, staged, inverse, offsets):
+        return ref.frontier_gather_ref(page_slots, hot, staged, inverse,
+                                       offsets)
+    return _tiered_gather.frontier_gather(page_slots, hot, staged, inverse,
+                                          offsets)
 
 
 def segment_mean(idx: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:

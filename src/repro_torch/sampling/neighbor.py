@@ -32,31 +32,35 @@ class SampledBlocks:
 
 
 def sample_hop(graph: CSRGraph, frontier: np.ndarray, fanout: int,
-               rng: np.random.Generator
+               rng: np.random.Generator, read_words=None
                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One uniform-with-replacement hop; degree-0 destinations self-loop.
     Returns the flattened sampled ids, the (F, fanout) edge positions read
-    and the (F,) frontier degrees."""
+    and the (F,) frontier degrees.  `read_words(pos)` reads the adjacency
+    words at `pos` (default `graph.indices[pos]`; the topology plane reads
+    them through its tiered page store)."""
     start = graph.indptr[frontier]
     deg = graph.indptr[frontier + 1] - start
     r = rng.random((frontier.shape[0], fanout))
     offs = np.floor(r * np.maximum(deg, 1)[:, None]).astype(np.int64)
     pos = np.minimum(start[:, None] + offs, graph.num_edges - 1)
-    nbr = graph.indices[pos].astype(np.int64)
+    words = graph.indices[pos] if read_words is None else read_words(pos)
+    nbr = words.astype(np.int64)
     nbr = np.where(deg[:, None] > 0, nbr, frontier[:, None])
     return nbr.reshape(-1), pos, deg
 
 
 def run_sample_hops(graph: CSRGraph, seeds: np.ndarray,
                     fanouts: Sequence[int], rng: np.random.Generator,
-                    hop_cb=None) -> tuple[list, np.ndarray, int]:
+                    hop_cb=None, read_words=None
+                    ) -> tuple[list, np.ndarray, int]:
     """Frontier loop over `sample_hop`, unique-union of all hops, request
     counting.  `hop_cb(hop, read_pos, n_frontier)` observes each hop's
-    adjacency reads."""
+    adjacency reads; `read_words` is handed to `sample_hop`."""
     frontier = seeds.astype(np.int64)
     hop_nodes: list[np.ndarray] = []
     for hop, f in enumerate(fanouts):
-        nbr, pos, deg = sample_hop(graph, frontier, f, rng)
+        nbr, pos, deg = sample_hop(graph, frontier, f, rng, read_words)
         if hop_cb is not None:
             hop_cb(hop, pos[deg > 0].reshape(-1), len(frontier))
         hop_nodes.append(nbr)
