@@ -11,7 +11,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. Per-kernel parity and timing at the main paths' shapes: each kernel
    against its plain PyTorch version on the same inputs (gathers, word
    gather, row-store fill and cache access exact; segment_mean within 1e-6
-   in f32 and 2e-2 in bf16).  Times are CUDA-event medians of 20 launches
+   in f32 and 2e-2 in bf16; flash_attention within 3e-4 in f32 and 3e-2 in
+   bf16, at the sweep of tests/test_kernels.py and at the serving path's
+   prefill, decode and a sliding-window shape, each in both types).  Times are CUDA-event medians of 20 launches
    after warm-up, with a 256 MB buffer written between launches so that
    every launch starts from a cold L2.
 3. The first main path: GraphSAGE training at the full width of
@@ -33,7 +35,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    plain versions' to rtol 1e-5, every loss must be finite, every batch
    must carry priced sampling time, and each of the path's kernels must be
    launched.
-5. One JSON line `{"kernels": [...]}` and, last, one JSON line naming the
+5. LM serving at the full published width of qwen2-1.5b (28 layers,
+   d_model 1536, 12 heads, GQA kv 2, hd 128, d_ff 8960, padded vocab
+   153600, 1,546,270,208 parameters) with `attn_impl="flash"`, weights
+   drawn on the card from a fixed CUDA generator.  Gates in f32 with TF32
+   off: teacher-forced logits of one GATE["prompt"]-token prompt through
+   `forward`, and through `prefill` plus GATE["steps"] decode steps, on the
+   flash path against the einsum path's `forward` within GATE["tol"]; then
+   3 prompts through a 2-slot `ServeEngine` give the tokens of
+   single-request greedy decoding.  Then it serves in bf16 (the config's
+   dtypes): SERVE["requests"] requests with prompt lengths from
+   `default_rng(0).integers(64, 1025, 16)` and SERVE["new_tokens"] new
+   tokens each through `EngineConfig(slots=8, max_seq=2048)`.  Every
+   request must retire with its tokens, the slot pool must end empty,
+   every logit must be finite, and `flash_attention` must have launched
+   exactly 28 x (prefills + decode ticks) times.  Prints prefill ms per
+   request against prompt length, decode ms per tick, tokens/s and peak
+   memory.  After the counted run, `torch.profiler` traces one 1024-token
+   prefill and PROFILE_TICKS decode ticks at 8 active slots and prints the
+   card's busy time per tick and its top kernels.
+6. One JSON line `{"kernels": [...]}` and, last, one JSON line naming the
    device.
 
 The script imports torch, numpy and the port (src/repro_torch) only.
@@ -41,6 +62,7 @@ The script imports torch, numpy and the port (src/repro_torch) only.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -58,6 +80,11 @@ FULL = dict(nodes=100_000, dim=1024, hidden=4096, batch=512,
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12       # f32 outside the tensor cores, same
+BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense, same
+#: phase 5: the f32 gate and the bf16 serving run
+GATE = dict(prompt=512, steps=16, tol=1e-3)
+SERVE = dict(slots=8, max_seq=2048, requests=16, new_tokens=32)
+PROFILE_TICKS = 4
 REPS, WARMUP = 20, 3
 
 
@@ -138,12 +165,14 @@ def host_ms(fn, setup, reps=3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: int = 0) -> dict:
+def bound(nbytes: int, flops: int = 0,
+          flops_per_s: float = F32_FLOPS_PER_S) -> dict:
     """The least time the card could take for the work: the bytes it must
-    move over the memory rate, or its f32 operations over the vector
-    rate, whichever is larger."""
+    move over the memory rate, or its operations over the peak rate for
+    their type (f32 on the vector units by default), whichever is
+    larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -401,6 +430,126 @@ def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000):
            "library_ms": None, **bound(nbytes)}
     emit(row)
     return summary([row])
+
+
+def _visible(torch, B, Sq, Sk, causal, window, offsets):
+    """(B, Sq, Sk) mask of the (query, key) pairs attention computes, query
+    i of sequence b at position offsets[b] + i."""
+    q_pos = (torch.arange(Sq, device="cuda")[None, :, None]
+             + offsets.long()[:, None, None])
+    k_pos = torch.arange(Sk, device="cuda")[None, None, :]
+    ok = torch.ones((B, Sq, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    return ok
+
+
+#: (row name, B, H, KV, Sq, Sk, hd, causal, window, dtypes); the sweep of
+#: tests/test_kernels.py:124-129, then the serving path's shapes
+FLASH_CASES = (
+    [(f"sweep_{n}", *c, ("float32", "bfloat16")) for n, c in (
+        ("mha", (2, 4, 4, 128, 128, 64, True, None)),
+        ("gqa", (2, 8, 2, 128, 128, 64, True, None)),
+        ("mqa", (1, 4, 1, 256, 256, 128, True, None)),
+        ("window", (2, 4, 2, 128, 128, 64, True, 32)),
+        ("padded", (2, 4, 4, 100, 164, 64, False, None)),
+        ("long_kv", (1, 2, 2, 64, 512, 64, True, None)))]
+    + [("prefill", 1, 12, 2, 1024, 2048, 128, True, None,
+        ("bfloat16", "float32")),
+       ("decode", 8, 12, 2, 1, 2048, 128, True, None,
+        ("bfloat16", "float32")),
+       ("window_danube", 1, 32, 8, 8192, 8192, 80, True, 4096,
+        ("bfloat16", "float32"))])
+
+
+def kernel_flash_attention(torch, timer, gen):
+    """Each FLASH_CASES row against attention_ref (3e-4 f32, 3e-2 bf16).
+    "decode" is one decode tick of the serving path: 8 slots at offsets
+    spread over 64-1900 of a 2048-row cache, read through the transposed
+    view of its (B, S, KV, hd) layout.  Bytes count q and o once and the
+    K/V rows some query sees once; operations count 4 hd per visible
+    (query, key) pair per head, at the input type's peak rate.  The
+    library yardstick is scaled_dot_product_attention with GQA (an explicit
+    mask where offsets or a window apply)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    rows = {}
+    for name, B, H, KV, Sq, Sk, hd, causal, window, dtypes in FLASH_CASES:
+        for dtype_name in dtypes:
+            dtype = getattr(torch, dtype_name)
+            tol = 3e-4 if dtype == torch.float32 else 3e-2
+            offsets = None
+            if name == "decode":
+                cache_k = torch.randn((B, Sk, KV, hd), generator=gen,
+                                      device="cuda").to(dtype)
+                cache_v = torch.randn((B, Sk, KV, hd), generator=gen,
+                                      device="cuda").to(dtype)
+                k, v = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+                q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda"
+                                ).to(dtype).transpose(1, 2)
+                offsets = torch.linspace(64, 1900, B, device="cuda").round(
+                    ).to(torch.int32)
+            else:
+                q = torch.randn((B, H, Sq, hd), generator=gen,
+                                device="cuda").to(dtype)
+                k = torch.randn((B, KV, Sk, hd), generator=gen,
+                                device="cuda").to(dtype)
+                v = torch.randn((B, KV, Sk, hd), generator=gen,
+                                device="cuda").to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=offsets)
+            out = ops.flash_attention(q, k, v, **kw)
+            want = ref.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            check(torch.allclose(out.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash_attention {name} {dtype_name} max_abs_err {err}")
+            del want
+            zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+            seen = _visible(torch, B, Sq, Sk, causal, window,
+                            offsets if offsets is not None else zero)
+            pairs = int(seen.sum())
+            kv_rows = int(seen.any(dim=1).sum())
+            el = q.element_size()
+            nbytes = 2 * q.numel() * el + 2 * kv_rows * KV * hd * el
+            flops = 4 * pairs * hd * H
+            rate = (F32_FLOPS_PER_S if dtype == torch.float32
+                    else BF16_FLOPS_PER_S)
+            if offsets is None and window is None:
+                mask, is_causal = None, causal
+            else:
+                mask, is_causal = seen[:, None], False
+            del seen
+            reps = 5 if name == "window_danube" else REPS
+            row = {"phase": "kernel", "name": "flash_attention",
+                   "case": name, "dtype": dtype_name,
+                   "shape": [B, H, KV, Sq, Sk, hd], "causal": causal,
+                   "window": window, "max_abs_err": err, "pairs": pairs,
+                   "kernel_ms": timer(lambda: ops.flash_attention(
+                       q, k, v, **kw)),
+                   "plain_ms": timer(lambda: ref.attention_ref(
+                       q, k, v, **kw), reps=reps),
+                   "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask, is_causal=is_causal,
+                       enable_gqa=True), reps=reps),
+                   **bound(nbytes, flops, rate)}
+            emit(row)
+            rows[(name, dtype_name)] = row
+            del q, k, v, out, mask
+    torch.cuda.empty_cache()
+    # the serving path's numbers: one decode tick's launch, and beside it
+    # one prefill launch at a 1024-token prompt
+    main = summary([rows[("decode", "bfloat16")]])
+    pre = rows[("prefill", "bfloat16")]
+    main.update({"prefill_ms": pre["kernel_ms"],
+                 "prefill_bound_ms": pre["bound_ms"],
+                 "prefill_bound_by": pre["bound_by"],
+                 "prefill_plain_ms": pre["plain_ms"],
+                 "prefill_library_ms": pre["library_ms"],
+                 "max_abs_err": max(r["max_abs_err"] for r in rows.values())})
+    return main
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -706,12 +855,268 @@ def merged_topology_path(torch, np):
     return launches
 
 
+LM_PATH = "lm-serve"
+
+
+def _greedy(torch, model, params, prompt, n, max_seq):
+    """n tokens of single-request greedy decoding through `model`."""
+    cache = model.init_cache(1, max_seq)
+    tokens = torch.from_numpy(prompt[None, :]).to(DEVICE)
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+    toks = [int(logits[0, -1].argmax())]
+    for pos in range(len(prompt), len(prompt) + n - 1):
+        logits, cache = model.decode_step(
+            params, torch.tensor([[toks[-1]]], dtype=torch.int32,
+                                 device=DEVICE), cache,
+            torch.tensor([pos], dtype=torch.int32, device=DEVICE))
+        toks.append(int(logits[0, -1].argmax()))
+    return toks
+
+
+def lm_gate_f32(torch, np):
+    """Phase 5, f32 gates at full width: flash against einsum logits, and
+    engine tokens against single-request greedy decoding.  GATE["tol"] is
+    the reference's own bound for decode against teacher forcing
+    (tests/test_decode_consistency.py:47); in f32 the two paths differ only
+    in summation order (online softmax, other matmul shapes)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    base = dataclasses.replace(configs.get("qwen2_1_5b"),
+                               param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+    flash = LM(dataclasses.replace(base, attn_impl="flash"), device=DEVICE)
+    einsum = LM(base, device=DEVICE)
+    params = flash.init(torch.Generator(device=DEVICE).manual_seed(0))
+    P, E = GATE["prompt"], GATE["steps"]
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, base.vocab_size, (1, P + E))
+                            .astype(np.int32)).to(DEVICE)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = einsum.forward(params, {"tokens": toks})[0]
+        fwd_err = (flash.forward(params, {"tokens": toks})[0] - want
+                   ).abs().max().item()
+        cache = flash.init_cache(1, P + E)
+        lg, cache = flash.prefill(params, {"tokens": toks[:, :P]}, cache)
+        errs = [(lg[0, -1] - want[P - 1]).abs().max().item()]
+        for t in range(E):
+            lg, cache = flash.decode_step(
+                params, toks[:, P + t:P + t + 1], cache,
+                torch.tensor([P + t], dtype=torch.int32, device=DEVICE))
+            errs.append((lg[0, 0] - want[P + t]).abs().max().item())
+        check(bool(torch.isfinite(want).all()), "f32 gate: non-finite logits")
+        scale = want[:, :base.vocab_size].abs().max().item()
+    emit({"phase": "lm_gate_f32", "prompt": P, "decode_steps": E,
+          "forward_max_abs_err": fwd_err, "decode_max_abs_err": max(errs),
+          "logit_max_abs": scale, "tol": GATE["tol"],
+          "seconds": time.perf_counter() - t0})
+    check(fwd_err <= GATE["tol"] and max(errs) <= GATE["tol"],
+          f"f32 gate: flash forward {fwd_err}, prefill+decode {max(errs)} "
+          f"vs einsum forward (tol {GATE['tol']})")
+
+    prompts = [rng.integers(0, base.vocab_size, n).astype(np.int32)
+               for n in (7, 11, 5)]
+    N = 6
+    with torch.inference_mode():
+        engine = ServeEngine(flash, params, EngineConfig(slots=2, max_seq=64),
+                             device=DEVICE)
+        for i, p in enumerate(prompts):
+            engine.submit(Request(rid=i, prompt=p, max_new_tokens=N))
+        done = engine.run_until_drained()
+        greedy = {i: _greedy(torch, flash, params, p, N, 64)
+                  for i, p in enumerate(prompts)}
+    got = {r.rid: r.generated for r in done}
+    emit({"phase": "lm_engine_gate_f32", "engine": got, "greedy": greedy})
+    check(got == greedy and engine.kv_slots.occupancy == 0.0,
+          "f32 engine gate: engine tokens differ from greedy decoding")
+
+
+def lm_serve_path(torch, np):
+    """Phase 5, the main path: SERVE["requests"] requests at full width in
+    bf16 through ServeEngine, every attention layer through
+    flash_attention."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    cfg = dataclasses.replace(configs.get("qwen2_1_5b"), attn_impl="flash")
+    model = LM(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [params["embed"], params["final_norm"]["scale"]] + [
+        t for g in params["stacks"][0]["b0"].values() for t in g.values()]
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == 1_546_270_208, f"qwen2-1.5b has {n_params} params")
+    engine = ServeEngine(model, params,
+                         EngineConfig(slots=SERVE["slots"],
+                                      max_seq=SERVE["max_seq"]),
+                         device=DEVICE)
+    lengths = np.random.default_rng(0).integers(64, 1025, SERVE["requests"])
+    rng = np.random.default_rng(1)
+    for i, n in enumerate(lengths):
+        engine.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32),
+            max_new_tokens=SERVE["new_tokens"]))
+    emit({"phase": "lm_setup", "model": cfg.name, "params": n_params,
+          "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "kv_cache_bytes": engine.kv_slots.capacity_bytes,
+          "init_s": init_s, "prompt_lengths": [int(n) for n in lengths]})
+
+    prefills, ticks, finite = [], [], []
+    prefill, decode = engine._prefill, engine._decode
+    decode_step, model_prefill = model.decode_step, model.prefill
+
+    def timed_prefill(prompt):
+        t = time.perf_counter()
+        out = prefill(prompt)                 # ends synchronised (argmax)
+        prefills.append({"prompt": len(prompt),
+                         "ms": (time.perf_counter() - t) * 1e3})
+        return out
+
+    def timed_decode():
+        t = time.perf_counter()
+        out = decode()                        # ends synchronised (.cpu())
+        ticks.append({"active": sum(r is not None for r in engine.active),
+                      "ms": (time.perf_counter() - t) * 1e3})
+        return out
+
+    def checked(fn):
+        def call(*args):
+            logits, cache = fn(*args)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return call
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(engine, "_prefill", timed_prefill), \
+            mock.patch.object(engine, "_decode", timed_decode), \
+            mock.patch.object(model, "decode_step", checked(decode_step)), \
+            mock.patch.object(model, "prefill", checked(model_prefill)):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        done = engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_tokens = sum(len(r.generated) for r in done)
+    for p in prefills:
+        emit({"phase": "lm_prefill", **p})
+    decode_ms = [t["ms"] for t in ticks]
+    emit({"phase": "main_path", "plane": LM_PATH, "model": cfg.name,
+          "requests": len(done), "tokens": n_tokens, "prefills": len(prefills),
+          "decode_ticks": len(ticks), "launches": launches,
+          "wall_s": wall_s, "tokens_per_s": n_tokens / wall_s,
+          "prefill_ms_total": sum(p["ms"] for p in prefills),
+          "decode_ms_total": sum(decode_ms),
+          "decode_ms_median": statistics.median(decode_ms),
+          "decode_ms_by_tick": decode_ms,
+          "decode_tokens_per_s": sum(t["active"] for t in ticks)
+          / (sum(decode_ms) / 1e3),
+          "peak_mem_bytes": peak})
+    check(len(done) == SERVE["requests"]
+          and all(r.done and len(r.generated) == SERVE["new_tokens"]
+                  for r in done),
+          "lm serve: not every request retired with its tokens")
+    check(engine.kv_slots.occupancy == 0.0, "lm serve: slots still held")
+    check(bool(torch.stack(finite).all()), "lm serve: non-finite logits")
+    want = cfg.num_layers * (len(prefills) + len(ticks))
+    check(len(prefills) == SERVE["requests"]
+          and launches["flash_attention"] == want,
+          f"lm serve: {launches['flash_attention']} flash_attention launches,"
+          f" expected {cfg.num_layers} x ({len(prefills)} prefills + "
+          f"{len(ticks)} decode ticks) = {want}")
+    full_ticks = [t["ms"] for t in ticks if t["active"] == SERVE["slots"]]
+    lm_profile(torch, np, engine, cfg, statistics.median(full_ticks))
+    return launches
+
+
+def _device_busy(trace_path: Path) -> dict:
+    """Kernel, copy and memset intervals of a Chrome trace: their union in
+    ms, their count, and the kernels' summed ms by name."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    spans, by_name = [], {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        if e["cat"] == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return {"busy_ms": busy / 1e3, "device_ops": len(spans),
+            "kernel_ms_by_name": by_name}
+
+
+def lm_profile(torch, np, engine, cfg, tick_ms: float) -> None:
+    """Where phase 5's time goes on the card: `torch.profiler` over one
+    1024-token prefill, then over PROFILE_TICKS decode ticks with all 8
+    slots active.  Busy time is the union of the traced kernels, copies and
+    memsets; the idle share of a tick is 1 - busy / `tick_ms`, the median
+    unprofiled tick at 8 active slots from the counted run (the profiler
+    slows the host, so its own wall time overstates idleness).  Runs after
+    the launch counts were read, so it adds to none of them."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(2)
+    slots = SERVE["slots"]
+    for i in range(slots):
+        engine.submit(Request(rid=1000 + i, prompt=rng.integers(
+            0, cfg.vocab_size, 512).astype(np.int32),
+            max_new_tokens=PROFILE_TICKS + 2))
+    engine.step()                      # admits all 8, one decode tick
+    check(all(r is not None for r in engine.active),
+          "lm profile: slots not all active")
+    prompt = rng.integers(0, cfg.vocab_size, 1024).astype(np.int32)
+    trace = ROOT / "build" / "lm_profile_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    out = {"phase": "lm_profile", "tick_ms_unprofiled": tick_ms}
+    for name, run in (("prefill_1024", lambda: engine._prefill(prompt)),
+                      ("decode_ticks", lambda: [
+                          engine.step() for _ in range(PROFILE_TICKS)])):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(str(trace))
+        dev = _device_busy(trace)
+        trace.unlink()
+        n = PROFILE_TICKS if name == "decode_ticks" else 1
+        top = sorted(dev["kernel_ms_by_name"].items(), key=lambda kv: -kv[1])
+        flash = sum(ms for k, ms in dev["kernel_ms_by_name"].items()
+                    if "flash_fwd_kernel" in k)
+        out[name] = {"profiled_wall_ms": wall_ms / n,
+                     "busy_ms": dev["busy_ms"] / n,
+                     "device_ops": dev["device_ops"] / n,
+                     "flash_ms": flash / n,
+                     "top_kernels_ms": [[k[:90], ms / n] for k, ms in top[:8]]}
+    busy = out["decode_ticks"]["busy_ms"]
+    out["decode_idle_share"] = (1 - busy / tick_ms) if busy > 0 else None
+    emit(out)
+    engine.run_until_drained()
+    check(engine.kv_slots.occupancy == 0.0, "lm profile: slots still held")
+
+
 #: the kernels each main path must launch
 PATH_KERNELS = {
     "gids-device": ("segment_mean", "tiered_gather", "store_fill",
                     "cache_access"),
     MERGED_PLANE: ("segment_mean", "tiered_gather_unique", "frontier_gather",
                    "store_fill", "cache_access"),
+    LM_PATH: ("flash_attention",),
 }
 
 
@@ -731,10 +1136,18 @@ SOURCES = {
                              "exact"),
     "frontier_gather": ("src/repro_torch/kernels/csrc/frontier_gather.cu",
                         "src/repro/kernels/tiered_gather.py:277", "exact"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:74",
+                        "allclose 3e-4 f32, 3e-2 bf16"),
 }
 
 
 def main() -> int:
+    # the run uses one card: keep only the first visible one, so that the
+    # device count on the last line is the number of cards that did the work
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = (visible.split(",")[0]
+                                          if visible is not None else "0")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -746,6 +1159,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    check(torch.cuda.device_count() == 1,
+          f"{torch.cuda.device_count()} cards visible after pinning to one")
     card_and_build(torch)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -755,12 +1170,17 @@ def main() -> int:
                 "cache_access": kernel_cache_access(torch, timer, np),
                 "tiered_gather_unique": kernel_tiered_gather_unique(
                     torch, timer, gen),
-                "frontier_gather": kernel_frontier_gather(torch, timer, gen)}
+                "frontier_gather": kernel_frontier_gather(torch, timer, gen),
+                "flash_attention": kernel_flash_attention(torch, timer, gen)}
     window_access = kernel_cache_access(torch, timer, np, B=28_000,
                                         id_range=100_000)
     del timer
     by_path = {"gids-device": main_path(torch, np)}
     by_path[MERGED_PLANE] = merged_topology_path(torch, np)
+    torch.cuda.empty_cache()
+    lm_gate_f32(torch, np)
+    torch.cuda.empty_cache()
+    by_path[LM_PATH] = lm_serve_path(torch, np)
     kernels = []
     for name, (source, replaces, parity) in SOURCES.items():
         m = measured[name]
@@ -768,7 +1188,8 @@ def main() -> int:
                     if name in PATH_KERNELS[path]}
         extra = ({"merged_window_ms": window_access["ms"],
                   "merged_window_bound_ms": window_access["bound_ms"]}
-                 if name == "cache_access" else {})
+                 if name == "cache_access" else
+                 {k: v for k, v in m.items() if k.startswith("prefill_")})
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "parity": parity,
                         "launches": sum(launches.values()),

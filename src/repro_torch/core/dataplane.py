@@ -1,9 +1,10 @@
 """Declarative data-plane composition, the port's subset of
 `repro.core.dataplane`: `DataPlaneSpec`, the tier-kind registry with the
-`device_store`, `constant_buffer` and `storage` kinds, and the
-`gids-device` preset with its `merge_execute` and `topology` options.  The
-other presets wait for their slices (ROADMAP.md Queue 1); `gids-merged*`
-and `gids-topo*` need the numpy `window_cache` tier of the host planes.
+`device_store`, `constant_buffer`, `storage` and `kv_slots` kinds, the
+`gids-device` preset with its `merge_execute` and `topology` options, and
+the serve engine's `serve-kv` preset.  The other presets wait for their
+slices (ROADMAP.md Queue 1); `gids-merged*` and `gids-topo*` need the numpy
+`window_cache` tier of the host planes.
 
     spec = DataPlaneSpec.preset("gids-device", merge_execute=True,
                                 topology=True)
@@ -18,7 +19,8 @@ from typing import Any, Callable, Mapping
 from .constant_buffer import ConstantBuffer
 from .feature_store import TieredFeatureStore
 from .storage_sim import StorageTimeline
-from .tiers import ConstantBufferTier, DeviceStoreTier, StorageTier, Tier
+from .tiers import (ConstantBufferTier, DeviceStoreTier, KVSlotTier,
+                    StorageTier, Tier)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +51,9 @@ class BuildContext:
     cbuf_selection: str = "pagerank"
     seed: int = 0
     device: Any = "cuda"
+    # serve engine KV slot pool
+    slots: int = 0
+    bytes_per_slot: int = 0
 
     _KNOBS = ("cache_lines", "cache_ways", "window_depth", "cbuf_fraction",
               "cbuf_selection", "seed")
@@ -109,6 +114,14 @@ def _make_storage(ctx: BuildContext) -> Tier:
     return StorageTier(ctx.features)
 
 
+@register_tier_kind("kv_slots")
+def _make_kv_slots(ctx: BuildContext, slots=None, bytes_per_slot=None) -> Tier:
+    slots = ctx.slots if slots is None else slots
+    bytes_per_slot = (ctx.bytes_per_slot if bytes_per_slot is None
+                      else bytes_per_slot)
+    return KVSlotTier(slots, bytes_per_slot)
+
+
 _PRESETS: dict[str, "DataPlaneSpec"] = {}
 
 #: The reference's other presets, by the ROADMAP.md Queue 1 item that
@@ -122,7 +135,7 @@ _UNPORTED_PRESETS = {
     **dict.fromkeys(("gids-sharded", "gids-merged-sharded", "gids-hosts",
                      "gids-hosts-merged"),
                     "sharded, host, fault and adaptive planes"),
-    **dict.fromkeys(("serve-gnn", "serve-gnn-shared", "serve-kv"), "serve"),
+    **dict.fromkeys(("serve-gnn", "serve-gnn-shared"), "serve"),
 }
 
 
@@ -165,8 +178,10 @@ class DataPlaneSpec:
     def with_(self, **overrides) -> "DataPlaneSpec":
         return dataclasses.replace(self, **overrides)
 
-    def build_stack(self, ctx: BuildContext) -> list[Tier]:
+    def build_stack(self, ctx: BuildContext | None = None,
+                    **ctx_kwargs) -> list[Tier]:
         """Resolve the TierSpecs into live tiers (None results omitted)."""
+        ctx = ctx or BuildContext(**ctx_kwargs)
         out = []
         for ts in self.tiers:
             try:
@@ -274,3 +289,10 @@ DataPlaneSpec.register(DataPlaneSpec(
                 "store on the GPU, the cache access and tiered gather as "
                 "CUDA kernels, in front of the constant pinned-host buffer "
                 "and direct storage."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="serve-kv",
+    tiers=(tier("kv_slots"),),
+    pricing="overlapped", lookahead=False,
+    description="Serve engine's KV-cache slot pool as a single-tier plane "
+                "(no storage backstop — requests queue when it is full)."))

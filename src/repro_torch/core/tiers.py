@@ -7,8 +7,9 @@ the gather plan that folds a tier stack over one batch.
                        window goes through `tiered_gather_unique`
   ConstantBufferTier — `ConstantBuffer` (pinned host memory)
   StorageTier        — the storage backstop (always hits)
+  KVSlotTier         — the serve engine's KV-cache slot pool
 
-The numpy-cache, tenant, KV-slot and sharded tiers wait for their slices
+The numpy-cache, tenant and sharded tiers wait for their slices
 (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
@@ -263,6 +264,66 @@ class StorageTier(_TierBase):
 
     def rows(self, node_ids: np.ndarray) -> np.ndarray:
         return np.asarray(self.features[node_ids])
+
+
+class KVSlotTier(_TierBase):
+    """KV-cache slot pool as a data-plane tier (serve engine).
+
+    A request "hits" while it holds a slot — its KV lines are resident and
+    un-evictable, the serving analogue of the window cache's USE state.  A
+    retired request's slot returns to safe-to-evict and is recycled for the
+    next admission.
+    """
+
+    latency_class = "hbm"
+
+    def __init__(self, slots: int, bytes_per_slot: int = 0,
+                 name: str = "kv-slots"):
+        self.num_slots = slots
+        self.bytes_per_slot = bytes_per_slot
+        self.name = name
+        self._free: deque[int] = deque(range(slots))
+        self._held: dict[int, int] = {}              # rid -> slot
+
+    @property
+    def capacity_bytes(self) -> int:
+        return self.num_slots * self.bytes_per_slot
+
+    @property
+    def occupancy(self) -> float:
+        return len(self._held) / self.num_slots if self.num_slots else 0.0
+
+    def probe(self, request_ids: np.ndarray) -> np.ndarray:
+        held = np.fromiter(self._held.keys(), dtype=np.int64,
+                           count=len(self._held))
+        return np.isin(np.asarray(request_ids, dtype=np.int64), held)
+
+    def admit(self, request_ids: np.ndarray) -> None:
+        """Best-effort bulk admission: ids beyond the free capacity are NOT
+        admitted (no queueing at this layer).  Callers that must know the
+        outcome use `acquire()` per id — the serve engine does, keeping its
+        own queue for the overflow."""
+        for r in request_ids:
+            self.acquire(int(r))
+
+    def acquire(self, rid: int) -> int | None:
+        """Assign a free slot to `rid` (idempotent); None when full."""
+        if rid in self._held:
+            return self._held[rid]
+        if not self._free:
+            return None
+        slot = self._free.popleft()
+        self._held[rid] = slot
+        return slot
+
+    def release(self, rid: int) -> int:
+        slot = self._held.pop(rid)
+        self._free.append(slot)
+        return slot
+
+    def reset(self) -> None:
+        self._free = deque(range(self.num_slots))
+        self._held.clear()
 
 
 @dataclasses.dataclass

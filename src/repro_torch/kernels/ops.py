@@ -3,13 +3,13 @@
 CPU tensors take the plain PyTorch version in `ref`; CUDA tensors take the
 hand-written kernel, which raises on what it does not accept.  There is no
 switch between the two and no fallback: the device decides.  Counterpart
-of `repro.kernels.ops` (`flash_attention` waits for the LM slice,
-ROADMAP.md Queue 2).
+of `repro.kernels.ops`.
 """
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _flash_attention
 from . import ref
 from . import segment_mean as _segment_mean
 from . import tiered_gather as _tiered_gather
@@ -65,3 +65,17 @@ def store_fill(rows: torch.Tensor, last_filler: torch.Tensor,
         ref.store_fill_ref(rows, last_filler, staged)
     else:
         _tiered_gather.store_fill(rows, last_filler, staged)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention of q (B, H, Sq, hd) over k, v (B, KV, Sk, hd); query i of
+    sequence b sits at position q_offset[b] + i (0 + i without it), which
+    the causal and window masks count from."""
+    tensors = (q, k, v) + ((q_offset,) if q_offset is not None else ())
+    if _on_cpu(*tensors):
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    return _flash_attention.flash_attention(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset)

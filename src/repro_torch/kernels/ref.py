@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels: the CPU path of every
 entry point in `ops`, and what `chip_smoke.py` holds each kernel against on
 the card.  Counterpart of `repro.kernels.ref` plus the oracles inside
-`repro.kernels.ops` (`attention_ref` waits for the LM slice)."""
+`repro.kernels.ops`."""
 from __future__ import annotations
 
 import torch
@@ -41,3 +41,37 @@ def store_fill_ref(rows: torch.Tensor, last_filler: torch.Tensor,
     place."""
     filled = last_filler >= 0
     rows[filled] = staged[last_filler[filled].long()]
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  scale: float | None = None,
+                  q_offset: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q k^T * scale + mask) v in f32, cast to q's dtype.
+
+    q (B, H, Sq, dh); k, v (B, KV, Sk, dh), q head h reading kv head
+    h // (H / KV).  `q_offset` (B,) int32 places query i of sequence b at
+    position q_offset[b] + i (default 0): the causal mask keeps k <= that
+    position, a window w keeps k > position - w.  Fully masked rows give 0.
+    """
+    B, H, Sq, dh = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    group = H // KV
+    scale = scale if scale is not None else dh ** -0.5
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    q_pos = torch.arange(Sq, device=q.device)[None, :]            # (1|B, Sq)
+    if q_offset is not None:
+        q_pos = q_pos + q_offset.to(q.device).long()[:, None]
+    q_pos = q_pos[:, None, :, None]
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones_like(q_pos + k_pos, dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(p.isnan(), 0.0, p)               # fully masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
