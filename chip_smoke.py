@@ -10,12 +10,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    csrc (one nvcc per source, all started together, into build/kernels/).
 2. Per-kernel parity and timing at the main paths' shapes: each kernel
    against its plain PyTorch version on the same inputs (gathers, word
-   gather, row-store fill and cache access exact; segment_mean within 1e-6
-   in f32 and 2e-2 in bf16; flash_attention within 3e-4 in f32 and 3e-2 in
-   bf16, at the sweep of tests/test_kernels.py and at the serving path's
-   prefill, decode and a sliding-window shape, each in both types).  Times are CUDA-event medians of 20 launches
-   after warm-up, with a 256 MB buffer written between launches so that
-   every launch starts from a cold L2.
+   gather, row-store fill, cache bucketing and cache access exact;
+   segment_mean within 1e-6 in f32 and 2e-2 in bf16; flash_attention
+   within 3e-4 in f32 and 3e-2 in bf16, and every output row within 1e-4
+   (f32) or 1e-2 (bf16) of its reference row in norm, at the sweep of
+   tests/test_kernels.py, at the serving path's prefill, decode and a
+   sliding-window shape, at decode edges (offsets 0 and Sk - 1, and one
+   sequence) in both types, and on the tensor-core path at hd 16, 32 and
+   a ragged Sq of 1000 in bf16; the split-KV merge flash_combine within
+   1e-5 in f32 and 1e-2 in bf16).  cache_access runs uniform rounds at
+   B 8192 and 28000 and a round whose ids all hash into 4 sets, and
+   cache_bucket runs at its largest set count and refuses one more.  Times
+   are CUDA-event medians of 20 launches after warm-up, with a 256 MB
+   buffer written and a short device sleep before each launch, so that
+   every launch starts from a cold L2 and the host's enqueue time is
+   never timed.
 3. The first main path: GraphSAGE training at the full width of
    examples/train_gnn_igb_torch.py (100k-node RMAT graph, 1024-d features,
    hidden 4096, batch 512, fanouts (10, 5)) through the `gids-device` data
@@ -49,13 +58,20 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    tokens each through `EngineConfig(slots=8, max_seq=2048)`.  Every
    request must retire with its tokens, the slot pool must end empty,
    every logit must be finite, and `flash_attention` must have launched
-   exactly 28 x (prefills + decode ticks) times.  Prints prefill ms per
+   exactly 28 x (prefills + decode ticks) times and `flash_combine` 28 x
+   decode ticks (every tick splits the kv range).  Prints prefill ms per
    request against prompt length, decode ms per tick, tokens/s and peak
    memory.  After the counted run, `torch.profiler` traces one 1024-token
    prefill and PROFILE_TICKS decode ticks at 8 active slots and prints the
    card's busy time per tick and its top kernels.
 6. One JSON line `{"kernels": [...]}` and, last, one JSON line naming the
    device.
+
+    python3 chip_smoke.py --plant-fault band_edge|full_lo
+
+builds flash_attention.cu with a known fault planted (FAULTS) into a
+temporary directory, and shows that phase 2's bf16 gate passes the sound
+kernel and rejects the faulty one on the same inputs.
 
 The script imports torch, numpy and the port (src/repro_torch) only.
 """
@@ -86,6 +102,7 @@ GATE = dict(prompt=512, steps=16, tol=1e-3)
 SERVE = dict(slots=8, max_seq=2048, requests=16, new_tokens=32)
 PROFILE_TICKS = 4
 REPS, WARMUP = 20, 3
+SLEEP_CYCLES = 1_000_000      # ~0.5 ms of device time before each timed call
 
 
 def fail(msg: str) -> None:
@@ -128,7 +145,10 @@ def card_and_build(torch):
 
 class Timer:
     """Median CUDA-event time of one call, over REPS calls after WARMUP,
-    with `setup()` (untimed) and an L2 flush before each call."""
+    with `setup()` (untimed) and an L2 flush before each call.  A short
+    device-side sleep after the flush keeps the card busy while the host
+    enqueues the call, so the events time the device's work and never the
+    wrapper's Python (the flush alone did not always cover it)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -145,6 +165,7 @@ class Timer:
         for _ in range(reps):
             args = setup() if setup else ()
             self.flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -383,21 +404,40 @@ def _clone_state(state, device):
     return type(state)(*(t.clone().to(device) for t in state))
 
 
-def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000):
+def _hot_ids(torch, num_sets, hot_sets, n):
+    """The first n ids that hash into sets 0 .. hot_sets - 1 (hashed on
+    the card)."""
+    from repro_torch.core import cache_device as cd
+    cand = torch.arange(1 << 25, device="cuda")
+    ids = cand[cd._set_of(cand, num_sets) < hot_sets][:n]
+    check(ids.numel() == n, f"only {ids.numel()} ids hash into {hot_sets} sets")
+    return ids.to(torch.int32).cpu().numpy()
+
+
+def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000,
+                        hot_sets=None):
     """B requests into 2048 sets x 8 ways over three rounds that repeat ids
     under window pinning (duplicates and -1 pads in the last), exact
     against access_ref on CPU tensors.  B = 8192 is one batch of the first
-    path, B = 28000 one merged window's unique ids on the second."""
+    path, B = 28000 one merged window's unique ids on the second.  With
+    `hot_sets`, every id hashes into that many sets (drawn from 4 x B ids
+    that do, with duplicates and 2 % -1 pads in every round): the serial
+    walk of a hot set.  The bucketing pass (`cache_bucket`) is also held
+    and timed on its own against `bucket_by_set_ref` on the card; its time
+    is part of cache_access's."""
     from repro_torch.core import cache_device as cd
     lines, ways = 16384, 8
+    num_sets = lines // ways
     rng = np.random.default_rng(7)
     gpu = cd.init_cache(lines, ways, device="cuda")
     cpu = cd.init_cache(lines, ways, device="cpu")
-    prev = rng.choice(id_range, B, replace=False)
+    pool = (_hot_ids(torch, num_sets, hot_sets, 4 * B) if hot_sets
+            else np.arange(id_range, dtype=np.int32))
+    prev = rng.choice(pool, B, replace=False)
     for rnd in range(3):
-        fresh = rng.choice(id_range, B, replace=False)
+        fresh = rng.choice(pool, B, replace=False)
         ids = np.where(rng.random(B) < 0.5, prev, fresh).astype(np.int32)
-        if rnd == 2:
+        if rnd == 2 or hot_sets:
             ids[rng.random(B) < 0.02] = -1
             ids[:64] = ids[64:128]
         fc = rng.integers(0, 3, B).astype(np.int32)
@@ -419,9 +459,12 @@ def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000):
     ids_d, fc_d = ids_t.cuda(), fc_t.cuda()
     nbytes = B * 8 + lines * 4 * 4 + lines * 4 + B * 9 + lines * 4 + 24
     row = {"phase": "kernel", "name": "cache_access", "dtype": "int32",
-           "shape": [B, lines // ways, ways], "max_abs_err": 0.0,
+           "shape": [B, num_sets, ways], "hot_sets": hot_sets,
+           "max_abs_err": 0.0,
            "hits": int(cpu.hits), "misses": int(cpu.misses),
            "bypasses": int(cpu.bypasses),
+           "largest_bucket": int(np.bincount(
+               cd._set_of(ids_t[ids_t >= 0], num_sets).numpy()).max()),
            "kernel_ms": timer(lambda st: cd.access(st, ids_d, fc_d),
                               setup=lambda: (_clone_state(snap_gpu, "cuda"),)),
            "plain_ms": host_ms(lambda st: cd.access(st, ids_t, fc_t),
@@ -429,7 +472,49 @@ def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000):
            "plain_on": "host CPU (access_ref is a Python loop)",
            "library_ms": None, **bound(nbytes)}
     emit(row)
-    return summary([row])
+    order, start = cd.bucket_by_set(ids_d, num_sets)
+    want_order, want_start = cd.bucket_by_set_ref(ids_d, num_sets)
+    torch.cuda.synchronize()
+    check(torch.equal(order, want_order) and torch.equal(start, want_start),
+          f"cache_bucket B {B} hot_sets {hot_sets}")
+    bucket = {"phase": "kernel", "name": "cache_bucket", "dtype": "int32",
+              "shape": [B, num_sets], "hot_sets": hot_sets,
+              "max_abs_err": 0.0,
+              "kernel_ms": timer(lambda: cd.bucket_by_set(ids_d, num_sets)),
+              "plain_ms": timer(lambda: cd.bucket_by_set_ref(ids_d,
+                                                             num_sets)),
+              "library_ms": None,
+              **bound(B * 4 + B * 4 + (num_sets + 2) * 4)}
+    emit(bucket)
+    return summary([row]), summary([bucket])
+
+
+def cache_bucket_limit(torch) -> None:
+    """cache_bucket at the largest set count its wrapper accepts (the
+    histogram and the key tile fill a block's 227 KB of shared memory),
+    exact against bucket_by_set_ref; one set more, the C entry point
+    refuses with cudaErrorInvalidValue (1) before it launches."""
+    from repro_torch.core import cache_device as cd
+    from repro_torch.kernels import _build
+    ids = torch.arange(-64, 4096, dtype=torch.int32, device="cuda")
+    order, start = cd.bucket_by_set(ids, cd._MAX_SETS)
+    want_order, want_start = cd.bucket_by_set_ref(ids, cd._MAX_SETS)
+    torch.cuda.synchronize()
+    check(torch.equal(order, want_order) and torch.equal(start, want_start),
+          f"cache_bucket at {cd._MAX_SETS} sets")
+    over = cd._MAX_SETS + 1
+    scratch = torch.empty(ids.numel() + 5 * (over + 1), dtype=torch.int32,
+                          device="cuda")
+    start = torch.empty(over + 2, dtype=torch.int32, device="cuda")
+    P, I = _build.P, _build.I
+    fn = _build.function("cache_access", "cache_bucket",
+                         (P, I, I, P, P, P, P))
+    err = fn(ids.data_ptr(), ids.numel(), over, scratch.data_ptr(),
+             order.data_ptr(), start.data_ptr(), _build.stream(ids))
+    check(err == 1, f"cache_bucket at {over} sets returned {err}, not 1")
+    emit({"phase": "kernel", "name": "cache_bucket", "case": "set_limit",
+          "accepted_sets": cd._MAX_SETS, "refused_sets": over,
+          "refused_with": err})
 
 
 def _visible(torch, B, Sq, Sk, causal, window, offsets):
@@ -461,11 +546,81 @@ FLASH_CASES = (
        ("decode", 8, 12, 2, 1, 2048, 128, True, None,
         ("bfloat16", "float32")),
        ("window_danube", 1, 32, 8, 8192, 8192, 80, True, 4096,
-        ("bfloat16", "float32"))])
+        ("bfloat16", "float32")),
+       # split-KV edges: offsets 0 (one visible row) and Sk - 1, so most
+       # splits are empty; one sequence, every split of one kv head busy
+       ("decode_edge", 8, 12, 2, 1, 2048, 128, True, None,
+        ("bfloat16", "float32")),
+       ("decode_b1", 1, 12, 2, 1, 2048, 128, True, None,
+        ("bfloat16", "float32")),
+       # the tensor-core path at the small head dims and a ragged Sq
+       ("prefill_hd16", 2, 4, 2, 1000, 1000, 16, True, None, ("bfloat16",)),
+       ("prefill_hd32", 2, 8, 2, 1000, 1100, 32, True, None, ("bfloat16",)),
+       ("prefill_ragged", 1, 12, 2, 1000, 2048, 128, True, None,
+        ("bfloat16",))])
+
+#: flash_attention's gate per dtype: allclose's rtol = atol, and the
+#: largest error of one output row relative to its reference row
+FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+FLASH_ROW_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+#: per-sequence offsets of the decode rows, read through the cache's view
+DECODE_OFFSETS = {
+    "decode": lambda torch, B, Sk: torch.linspace(64, 1900, B, device="cuda"),
+    "decode_edge": lambda torch, B, Sk: torch.tensor([0.0, Sk - 1] * (B // 2),
+                                                     device="cuda"),
+    "decode_b1": lambda torch, B, Sk: torch.full((B,), Sk - 1.0,
+                                                 device="cuda")}
+
+
+def _flash_inputs(torch, gen, case, dtype):
+    """q, k, v and the keyword arguments of one FLASH_CASES row; the decode
+    rows read K/V through the transposed view of the cache's (B, S, KV, hd)
+    layout, at their per-sequence offsets."""
+    name, B, H, KV, Sq, Sk, hd, causal, window, _ = case
+    offsets = None
+    if name in DECODE_OFFSETS:
+        cache_k = torch.randn((B, Sk, KV, hd), generator=gen,
+                              device="cuda").to(dtype)
+        cache_v = torch.randn((B, Sk, KV, hd), generator=gen,
+                              device="cuda").to(dtype)
+        k, v = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+        q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda"
+                        ).to(dtype).transpose(1, 2)
+        offsets = DECODE_OFFSETS[name](torch, B, Sk).round().to(torch.int32)
+    else:
+        q = torch.randn((B, H, Sq, hd), generator=gen,
+                        device="cuda").to(dtype)
+        k = torch.randn((B, KV, Sk, hd), generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn((B, KV, Sk, hd), generator=gen,
+                        device="cuda").to(dtype)
+    return q, k, v, dict(causal=causal, window=window, q_offset=offsets)
+
+
+def _flash_errors(torch, out, want) -> dict:
+    """The two readings of the flash_attention gate: the largest absolute
+    error, held to FLASH_TOL by allclose, and the largest error of one
+    output row relative to that row, ||out - want|| / ||want|| over hd,
+    held to FLASH_ROW_REL.  The second scales with the output: with
+    N(0, 1) inputs a row that sees n keys has elements of about
+    sqrt(e / n), 0.026 at a 4096-key window, which a 3e-2 allclose cannot
+    tell from 0.  One bf16 rounding of a row is about 2e-3 of it; a key
+    dropped or added at a band edge moves a row by about 1e-2 or more.  A
+    row whose reference is 0 (nothing visible) must be 0."""
+    dtype_name = str(want.dtype).removeprefix("torch.")
+    d, w = out.float() - want.float(), want.float()
+    row_rel = (d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max().item()
+    tol = FLASH_TOL[dtype_name]
+    return {"max_abs_err": d.abs().max().item(), "row_rel_err": row_rel,
+            "allclose_ok": torch.allclose(out.float(), w, rtol=tol, atol=tol),
+            "row_rel_ok": row_rel <= FLASH_ROW_REL[dtype_name]}
 
 
 def kernel_flash_attention(torch, timer, gen):
-    """Each FLASH_CASES row against attention_ref (3e-4 f32, 3e-2 bf16).
+    """Each FLASH_CASES row against attention_ref: allclose 3e-4 in f32 and
+    3e-2 in bf16, and every output row within 1e-4 (f32) or 1e-2 (bf16) of
+    its reference row in norm (`_flash_errors`).
     "decode" is one decode tick of the serving path: 8 slots at offsets
     spread over 64-1900 of a 2048-row cache, read through the transposed
     view of its (B, S, KV, hd) layout.  Bytes count q and o once and the
@@ -476,36 +631,20 @@ def kernel_flash_attention(torch, timer, gen):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     rows = {}
-    for name, B, H, KV, Sq, Sk, hd, causal, window, dtypes in FLASH_CASES:
+    for case in FLASH_CASES:
+        name, B, H, KV, Sq, Sk, hd, causal, window, dtypes = case
         for dtype_name in dtypes:
             dtype = getattr(torch, dtype_name)
-            tol = 3e-4 if dtype == torch.float32 else 3e-2
-            offsets = None
-            if name == "decode":
-                cache_k = torch.randn((B, Sk, KV, hd), generator=gen,
-                                      device="cuda").to(dtype)
-                cache_v = torch.randn((B, Sk, KV, hd), generator=gen,
-                                      device="cuda").to(dtype)
-                k, v = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
-                q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda"
-                                ).to(dtype).transpose(1, 2)
-                offsets = torch.linspace(64, 1900, B, device="cuda").round(
-                    ).to(torch.int32)
-            else:
-                q = torch.randn((B, H, Sq, hd), generator=gen,
-                                device="cuda").to(dtype)
-                k = torch.randn((B, KV, Sk, hd), generator=gen,
-                                device="cuda").to(dtype)
-                v = torch.randn((B, KV, Sk, hd), generator=gen,
-                                device="cuda").to(dtype)
-            kw = dict(causal=causal, window=window, q_offset=offsets)
+            q, k, v, kw = _flash_inputs(torch, gen, case, dtype)
+            offsets = kw["q_offset"]
             out = ops.flash_attention(q, k, v, **kw)
             want = ref.attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
-            err = (out.float() - want.float()).abs().max().item()
-            check(torch.allclose(out.float(), want.float(), rtol=tol,
-                                 atol=tol),
-                  f"flash_attention {name} {dtype_name} max_abs_err {err}")
+            errs = _flash_errors(torch, out, want)
+            err = errs["max_abs_err"]
+            check(errs["allclose_ok"] and errs["row_rel_ok"],
+                  f"flash_attention {name} {dtype_name} max_abs_err {err} "
+                  f"row_rel_err {errs['row_rel_err']}")
             del want
             zero = torch.zeros(B, dtype=torch.int32, device="cuda")
             seen = _visible(torch, B, Sq, Sk, causal, window,
@@ -526,7 +665,8 @@ def kernel_flash_attention(torch, timer, gen):
             row = {"phase": "kernel", "name": "flash_attention",
                    "case": name, "dtype": dtype_name,
                    "shape": [B, H, KV, Sq, Sk, hd], "causal": causal,
-                   "window": window, "max_abs_err": err, "pairs": pairs,
+                   "window": window, "max_abs_err": err,
+                   "row_rel_err": errs["row_rel_err"], "pairs": pairs,
                    "kernel_ms": timer(lambda: ops.flash_attention(
                        q, k, v, **kw)),
                    "plain_ms": timer(lambda: ref.attention_ref(
@@ -550,6 +690,114 @@ def kernel_flash_attention(torch, timer, gen):
                  "prefill_library_ms": pre["library_ms"],
                  "max_abs_err": max(r["max_abs_err"] for r in rows.values())})
     return main
+
+
+#: faults that `--plant-fault` builds into a copy of flash_attention.cu, as
+#: (old, new) text in flash_mma_kernel, the bf16 tensor-core path: the
+#: partial kv tile at the lower (window) edge of a q-tile's band dropped,
+#: and the lower edge of the unmasked-tile shortcut 4 keys too early
+FAULTS = {
+    "band_edge": ("const int kt_begin = lo / kBK,",
+                  "const int kt_begin = (lo + kBK - 1) / kBK,"),
+    "full_lo": ("max(0, wq_hi - p.window + 1)",
+                "max(0, wq_hi - p.window - 3)"),
+}
+
+
+def plant_fault(torch, fault: str) -> int:
+    """Shows that phase 2's flash_attention gate rejects FAULTS[fault]: the
+    faulty source is built into a temporary directory beside the sound
+    one, and every bf16 FLASH_CASES row runs through both libraries on the
+    same inputs against attention_ref.  Prints both readings per row (and
+    whether allclose and the row-relative test pass); returns 0 if the
+    gate passes the sound kernel on every row and rejects the fault on
+    some row, else 1."""
+    import ctypes
+    import shutil
+    import tempfile
+    from repro_torch.kernels import _build, ops, ref
+    old, new = FAULTS[fault]
+    source = (ROOT / SOURCES["flash_attention"][0]).read_text()
+    check(source.count(old) == 1,
+          f"--plant-fault {fault}: {old!r} is not in the source once")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fault_"))
+    try:
+        (tmp / "flash_attention.cu").write_text(source.replace(old, new))
+        nvcc = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp / "lib.so"),
+             str(tmp / "flash_attention.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        libs = {"sound": _build.library("flash_attention")}
+        log = nvcc.communicate()[0]
+        check(nvcc.returncode == 0, f"nvcc failed on the fault:\n{log}")
+        libs[fault] = ctypes.CDLL(str(tmp / "lib.so"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        sound_ok, caught = True, []
+        for case in FLASH_CASES:
+            if "bfloat16" not in case[-1]:
+                continue
+            q, k, v, kw = _flash_inputs(torch, gen, case, torch.bfloat16)
+            want = ref.attention_ref(q, k, v, **kw)
+            row = {"phase": "plant_fault", "case": case[0]}
+            for lib_name, lib in libs.items():
+                _build._libs["flash_attention"] = lib
+                row[lib_name] = _flash_errors(
+                    torch, ops.flash_attention(q, k, v, **kw), want)
+            emit(row)
+            sound_ok &= row["sound"]["allclose_ok"] and \
+                row["sound"]["row_rel_ok"]
+            if not (row[fault]["allclose_ok"] and row[fault]["row_rel_ok"]):
+                caught.append(case[0])
+            del q, k, v, want
+        _build._libs["flash_attention"] = libs["sound"]
+    finally:
+        shutil.rmtree(tmp)
+    emit({"phase": "plant_fault", "fault": fault, "sound_passes": sound_ok,
+          "rejected_in": caught})
+    return 0 if sound_ok and caught else 1
+
+
+def kernel_flash_combine(torch, timer, gen):
+    """The split-KV merge at the decode row's shapes (B 8, H 12, KV 2, hd
+    128, offsets 64-1900 of 2048, split_plan's splits): partials from
+    `ref.flash_split_ref` on the card, then the combine kernel against
+    `ref.flash_combine_ref` on the same partials, 1e-5 in f32 and 1e-2 in
+    bf16 (one rounding of the output apart).  Bytes count the partials of
+    the rows it reads and the output once."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, H, KV, Sk, hd = 8, 12, 2, 2048, 128
+    q = torch.randn((B, H, 1, hd), generator=gen, device="cuda")
+    k = torch.randn((B, KV, Sk, hd), generator=gen, device="cuda")
+    v = torch.randn((B, KV, Sk, hd), generator=gen, device="cuda")
+    offsets = torch.linspace(64, 1900, B, device="cuda").round().to(
+        torch.int32)
+    splits, chunk = fa.split_plan(Sk, B, KV, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    ml, acc = ref.flash_split_ref(q, k, v, splits, chunk, q_offset=offsets)
+    rows = []
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        out = torch.empty((B, H, 1, hd), dtype=dtype, device="cuda")
+        fa.flash_combine(ml, acc, out)
+        want = ref.flash_combine_ref(ml, acc, H, 1, dtype)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_combine {dtype} max_abs_err {err}")
+        group = H // KV
+        nbytes = (B * KV * splits * group * (2 + hd) * 4
+                  + out.numel() * out.element_size())
+        row = {"phase": "kernel", "name": "flash_combine",
+               "dtype": str(dtype).removeprefix("torch."),
+               "shape": [B, H, KV, splits, hd], "max_abs_err": err,
+               "kernel_ms": timer(lambda: fa.flash_combine(ml, acc, out)),
+               "plain_ms": timer(lambda: ref.flash_combine_ref(
+                   ml, acc, H, 1, dtype)),
+               "library_ms": None,
+               **bound(nbytes, 2 * B * H * splits * hd)}
+        emit(row)
+        rows.append(row)
+    return summary(rows[:1])                 # bf16: the serving path's
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -1033,6 +1281,10 @@ def lm_serve_path(torch, np):
           f"lm serve: {launches['flash_attention']} flash_attention launches,"
           f" expected {cfg.num_layers} x ({len(prefills)} prefills + "
           f"{len(ticks)} decode ticks) = {want}")
+    check(launches["flash_combine"] == cfg.num_layers * len(ticks),
+          f"lm serve: {launches['flash_combine']} flash_combine launches, "
+          f"expected one per decode-tick layer, {cfg.num_layers} x "
+          f"{len(ticks)}")
     full_ticks = [t["ms"] for t in ticks if t["active"] == SERVE["slots"]]
     lm_profile(torch, np, engine, cfg, statistics.median(full_ticks))
     return launches
@@ -1097,7 +1349,7 @@ def lm_profile(torch, np, engine, cfg, tick_ms: float) -> None:
         n = PROFILE_TICKS if name == "decode_ticks" else 1
         top = sorted(dev["kernel_ms_by_name"].items(), key=lambda kv: -kv[1])
         flash = sum(ms for k, ms in dev["kernel_ms_by_name"].items()
-                    if "flash_fwd_kernel" in k)
+                    if "flash_" in k)
         out[name] = {"profiled_wall_ms": wall_ms / n,
                      "busy_ms": dev["busy_ms"] / n,
                      "device_ops": dev["device_ops"] / n,
@@ -1113,10 +1365,10 @@ def lm_profile(torch, np, engine, cfg, tick_ms: float) -> None:
 #: the kernels each main path must launch
 PATH_KERNELS = {
     "gids-device": ("segment_mean", "tiered_gather", "store_fill",
-                    "cache_access"),
+                    "cache_bucket", "cache_access"),
     MERGED_PLANE: ("segment_mean", "tiered_gather_unique", "frontier_gather",
-                   "store_fill", "cache_access"),
-    LM_PATH: ("flash_attention",),
+                   "store_fill", "cache_bucket", "cache_access"),
+    LM_PATH: ("flash_attention", "flash_combine"),
 }
 
 
@@ -1129,6 +1381,8 @@ SOURCES = {
                       "src/repro/kernels/tiered_gather.py:154", "exact"),
     "store_fill": ("src/repro_torch/kernels/csrc/tiered_gather.cu",
                    "src/repro/core/device_store.py:48", "exact"),
+    "cache_bucket": ("src/repro_torch/kernels/csrc/cache_access.cu",
+                     "src/repro/core/cache_jax.py:70", "exact"),
     "cache_access": ("src/repro_torch/kernels/csrc/cache_access.cu",
                      "src/repro/core/cache_jax.py:70", "exact"),
     "tiered_gather_unique": ("src/repro_torch/kernels/csrc/tiered_gather.cu",
@@ -1138,11 +1392,21 @@ SOURCES = {
                         "src/repro/kernels/tiered_gather.py:277", "exact"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:74",
-                        "allclose 3e-4 f32, 3e-2 bf16"),
+                        "allclose 3e-4 f32, 3e-2 bf16; each row within "
+                        "1e-4 f32, 1e-2 bf16 of its norm"),
+    "flash_combine": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:30",
+                      "allclose 1e-5 f32, 1e-2 bf16"),
 }
 
 
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--plant-fault", choices=sorted(FAULTS),
+                        help="instead of the run, show that phase 2's "
+                        "flash_attention gate rejects this planted fault")
+    args = parser.parse_args()
     # the run uses one card: keep only the first visible one, so that the
     # device count on the last line is the number of cards that did the work
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -1161,19 +1425,27 @@ def main() -> int:
 
     check(torch.cuda.device_count() == 1,
           f"{torch.cuda.device_count()} cards visible after pinning to one")
+    if args.plant_fault:
+        return plant_fault(torch, args.plant_fault)
     card_and_build(torch)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {"segment_mean": kernel_segment_mean(torch, timer, gen),
                 "tiered_gather": kernel_tiered_gather(torch, timer, gen),
                 "store_fill": kernel_store_fill(torch, timer, gen),
-                "cache_access": kernel_cache_access(torch, timer, np),
+                "cache_access": None, "cache_bucket": None,
                 "tiered_gather_unique": kernel_tiered_gather_unique(
                     torch, timer, gen),
                 "frontier_gather": kernel_frontier_gather(torch, timer, gen),
-                "flash_attention": kernel_flash_attention(torch, timer, gen)}
-    window_access = kernel_cache_access(torch, timer, np, B=28_000,
-                                        id_range=100_000)
+                "flash_attention": kernel_flash_attention(torch, timer, gen),
+                "flash_combine": kernel_flash_combine(torch, timer, gen)}
+    measured["cache_access"], measured["cache_bucket"] = kernel_cache_access(
+        torch, timer, np)
+    window_access, window_bucket = kernel_cache_access(
+        torch, timer, np, B=28_000, id_range=100_000)
+    hot_access, hot_bucket = kernel_cache_access(torch, timer, np,
+                                                 hot_sets=4)
+    cache_bucket_limit(torch)
     del timer
     by_path = {"gids-device": main_path(torch, np)}
     by_path[MERGED_PLANE] = merged_topology_path(torch, np)
@@ -1186,10 +1458,15 @@ def main() -> int:
         m = measured[name]
         launches = {path: n[name] for path, n in by_path.items()
                     if name in PATH_KERNELS[path]}
-        extra = ({"merged_window_ms": window_access["ms"],
-                  "merged_window_bound_ms": window_access["bound_ms"]}
-                 if name == "cache_access" else
-                 {k: v for k, v in m.items() if k.startswith("prefill_")})
+        if name in ("cache_access", "cache_bucket"):
+            window, hot = ((window_access, hot_access)
+                           if name == "cache_access"
+                           else (window_bucket, hot_bucket))
+            extra = {"merged_window_ms": window["ms"],
+                     "merged_window_bound_ms": window["bound_ms"],
+                     "hot_4_sets_ms": hot["ms"]}
+        else:
+            extra = {k: v for k, v in m.items() if k.startswith("prefill_")}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "parity": parity,
                         "launches": sum(launches.values()),

@@ -8,8 +8,9 @@ the same first-way choices, the same counters.  Padding node id = -1.
 
 `access` dispatches on the device: CPU tensors run `access_ref`, a Python
 loop that mirrors `cache_jax.access` request by request; CUDA tensors run
-the `cache_access` kernel (kernels/csrc/cache_access.cu), one thread per
-set walking its requests in request order.
+`cache_bucket` (a stable counting sort of the requests by set) and then the
+`cache_access` kernel (kernels/csrc/cache_access.cu), one warp per set
+walking its own bucket in request order.
 """
 from __future__ import annotations
 
@@ -23,6 +24,11 @@ from repro_torch.kernels import _build
 
 _HASH_MULT = 0x9E3779B9  # 32-bit Fibonacci hash, as the reference's
 _MAX_WAYS = 64           # the kernel tracks filled ways in a 64-bit mask
+_BUCKET_TILE = 1024      # requests per tile of cache_bucket's count pass
+#: cache_bucket's count pass holds a (sets + 1) int32 histogram beside its
+#: tile of int32 keys in one block's shared memory, at most 227 KB on an
+#: H100: 57087 sets, the kernel's kMaxSets
+_MAX_SETS = (227 * 1024 - 4 * _BUCKET_TILE) // 4 - 1
 
 
 class CacheState(NamedTuple):
@@ -158,6 +164,57 @@ def access_ref(state: CacheState, nodes: torch.Tensor,
                         torch.from_numpy(serve), torch.from_numpy(last_filler))
 
 
+def bucket_by_set_ref(ids: torch.Tensor,
+                      num_sets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `cache_bucket`: `order` (B,) int32 is the stable
+    argsort of key = set of the id, or num_sets for padding (id < 0), so
+    each set's requests keep their request order and padding lands in a
+    trailing bucket of its own; `start` (num_sets + 2,) int32 holds each
+    bucket's first position, start[num_sets + 1] = B."""
+    key = torch.where(ids >= 0, _set_of(ids, num_sets).long(), num_sets)
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(key, minlength=num_sets + 1)
+    start = torch.zeros(num_sets + 2, dtype=torch.int64, device=ids.device)
+    start[1:] = counts.cumsum(0)
+    return order, start.to(torch.int32)
+
+
+def _bucket_cuda(ids: torch.Tensor,
+                 num_sets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    _build.require_cuda("cache_bucket", ids)
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError(f"cache_bucket: ids must be (B,) int32, got "
+                         f"{tuple(ids.shape)} {ids.dtype}")
+    if not 0 < num_sets <= _MAX_SETS:
+        raise ValueError(f"cache_bucket: num_sets must be in "
+                         f"1..{_MAX_SETS}, got {num_sets}")
+    B = ids.shape[0]
+    tiles = -(-B // _BUCKET_TILE)
+    dev = ids.device
+    scratch = torch.empty(B + tiles * (num_sets + 1), dtype=torch.int32,
+                          device=dev)
+    order = torch.empty(B, dtype=torch.int32, device=dev)
+    start = torch.empty(num_sets + 2, dtype=torch.int32, device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("cache_access", "cache_bucket",
+                         (P, I, I, P, P, P, P))
+    _build.check(fn(ids.data_ptr(), B, num_sets, scratch.data_ptr(),
+                    order.data_ptr(), start.data_ptr(), _build.stream(ids)),
+                 "cache_bucket")
+    _build.LAUNCHES["cache_bucket"] += 1
+    return order, start
+
+
+def bucket_by_set(ids: torch.Tensor,
+                  num_sets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The requests' stable order by set and each bucket's start: CPU
+    tensors take `bucket_by_set_ref`, CUDA tensors the `cache_bucket`
+    kernel."""
+    if ids.device.type == "cpu":
+        return bucket_by_set_ref(ids, num_sets)
+    return _bucket_cuda(ids, num_sets)
+
+
 def _access_cuda(state: CacheState, nodes: torch.Tensor,
                  future_counts: torch.Tensor) -> AccessResult:
     _build.require_cuda("cache_access", nodes, future_counts, *state)
@@ -179,19 +236,21 @@ def _access_cuda(state: CacheState, nodes: torch.Tensor,
             or state.reuse.shape != state.tags.shape:
         raise ValueError(f"cache_access: tags, reuse and slots must share "
                          f"one (num_sets, ways <= {_MAX_WAYS}) shape")
+    order, start = _bucket_cuda(nodes, num_sets)
     dev = nodes.device
     hit = torch.empty(B, dtype=torch.bool, device=dev)
     slot = torch.empty(B, dtype=torch.int32, device=dev)
     serve = torch.empty(B, dtype=torch.int32, device=dev)
-    sets = torch.empty(B, dtype=torch.int32, device=dev)
     last_filler = torch.empty(num_sets * ways, dtype=torch.int32, device=dev)
     P, I = _build.P, _build.I
     fn = _build.function("cache_access", "cache_access",
-                         (P, P, P, I, P, P, P, I, I, P, P, P, P, P, P, P, P))
+                         (P, P, P, P, I, P, P, P, I, I, P, P, P, P, P, P, P,
+                          P))
     _build.check(fn(nodes.data_ptr(), future_counts.data_ptr(),
-                    sets.data_ptr(), B, state.tags.data_ptr(),
-                    state.reuse.data_ptr(), state.slots.data_ptr(), num_sets,
-                    ways, hit.data_ptr(), slot.data_ptr(), serve.data_ptr(),
+                    order.data_ptr(), start.data_ptr(), B,
+                    state.tags.data_ptr(), state.reuse.data_ptr(),
+                    state.slots.data_ptr(), num_sets, ways, hit.data_ptr(),
+                    slot.data_ptr(), serve.data_ptr(),
                     last_filler.data_ptr(), state.hits.data_ptr(),
                     state.misses.data_ptr(), state.bypasses.data_ptr(),
                     _build.stream(nodes)), "cache_access")

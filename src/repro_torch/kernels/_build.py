@@ -34,8 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
-    ("segment_mean", "tiered_gather", "store_fill", "cache_access",
-     "tiered_gather_unique", "frontier_gather", "flash_attention"), 0)
+    ("segment_mean", "tiered_gather", "store_fill", "cache_bucket",
+     "cache_access", "tiered_gather_unique", "frontier_gather",
+     "flash_attention", "flash_combine"), 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 

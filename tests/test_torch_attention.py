@@ -183,3 +183,111 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_no_launch():
     assert _build.LAUNCHES["flash_attention"] == before
     assert "flash_attention" in _build.SOURCES
     assert tfa.HEAD_DIMS == (16, 32, 64, 80, 128)
+
+
+# split-KV: (B, H, KV, Sq, Sk, hd, window, offsets); offsets 0 (one visible
+# row) and Sk - Sq leave most splits empty; the last case's first sequence
+# sees no key at all
+SPLIT_CASES = [(3, 12, 2, 1, 300, 32, None, (0, 150, 299)),
+               (2, 8, 2, 4, 200, 16, 24, (0, 196)),
+               (1, 4, 1, 2, 130, 64, None, (128,)),
+               (2, 4, 2, 1, 64, 16, 4, (100, 10))]
+
+
+def _reference_at_offsets(q, k, v, offsets, window):
+    """The JAX oracle at per-sequence offsets: each sequence's queries
+    after `offset` leading zero queries, which the causal mask counts."""
+    B, H, Sq, hd = q.shape
+    outs = []
+    for b, o in enumerate(offsets):
+        qpad = np.concatenate([np.zeros((1, H, o, hd), np.float32),
+                               q[b:b + 1]], axis=2)
+        want = jref.attention_ref(jnp.asarray(qpad), jnp.asarray(k[b:b + 1]),
+                                  jnp.asarray(v[b:b + 1]), causal=True,
+                                  window=window)
+        outs.append(np.asarray(want)[0, :, o:])
+    return np.stack(outs)
+
+
+@pytest.mark.parametrize("plan", ["launcher", "one_tile"])
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=["decode", "window_group4", "b1", "unseen"])
+def test_split_and_combine_match_reference_oracle(case, plan):
+    """The kernel's split-KV arithmetic in plain torch: partials (m, l,
+    acc) per kv chunk with NEG_INF = -1e30, merged by log-sum-exp, against
+    the JAX oracle within 1e-6 in f32, rows with nothing visible 0."""
+    B, H, KV, Sq, Sk, hd, window, offsets = case
+    rng = np.random.default_rng(Sk + hd)
+    q = rng.standard_normal((B, H, Sq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, KV, Sk, hd)).astype(np.float32)
+    v = rng.standard_normal((B, KV, Sk, hd)).astype(np.float32)
+    if plan == "launcher":
+        splits, chunk = tfa.split_plan(Sk, B, KV, sms=132)
+    else:
+        chunk = tfa.SPLIT_TILE
+        splits = -(-Sk // chunk)
+    off = torch.tensor(offsets, dtype=torch.int32)
+    ml, acc = ref.flash_split_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), splits, chunk,
+                                  causal=True, window=window, q_offset=off)
+    assert ml.shape == (B, KV, splits, tfa.SPLIT_ROWS, 2)
+    assert acc.shape == (B, KV, splits, tfa.SPLIT_ROWS, hd)
+    out = ref.flash_combine_ref(ml, acc, H, Sq, torch.float32)
+    want = _reference_at_offsets(q, k, v, offsets, window)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-6, atol=1e-6)
+    # a split past a sequence's band holds the neutral partial
+    empty = ml[..., 1] == 0
+    assert empty.any()
+    assert bool((ml[..., 0][empty] == ref.NEG_INF).all())
+    assert bool((acc[empty] == 0).all())
+    if plan == "one_tile" and window is not None and offsets[0] - window >= Sk:
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("Sk", [1, 63, 64, 65, 300, 2048, 8192])
+@pytest.mark.parametrize("B,KV", [(1, 1), (1, 2), (8, 2), (4, 8), (64, 8)])
+def test_split_plan_covers_kv_range_once(Sk, B, KV):
+    """split_plan is a pure function of static shapes: its chunks tile
+    [0, Sk) exactly once, each a multiple of the kv tile, no split empty
+    of rows, at most MAX_SPLITS, and about SPLIT_FILL blocks per SM."""
+    sms = 132
+    splits, chunk = tfa.split_plan(Sk, B, KV, sms)
+    assert (splits, chunk) == tfa.split_plan(Sk, B, KV, sms)
+    assert 1 <= splits <= tfa.MAX_SPLITS and chunk % tfa.SPLIT_TILE == 0
+    covered = np.zeros(Sk, np.int64)
+    for s in range(splits):
+        lo, hi = s * chunk, min((s + 1) * chunk, Sk)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    tiles = -(-Sk // tfa.SPLIT_TILE)
+    if splits < min(tiles, tfa.MAX_SPLITS):
+        assert B * KV * splits >= tfa.SPLIT_FILL * sms * 0.5
+
+
+def test_flash_combine_ref_of_one_split_is_the_normalised_partial():
+    """With one split the merge is acc / l, and a row whose split saw no
+    key (l = 0) is 0."""
+    B, KV, H, Sq, hd = 1, 2, 4, 1, 16
+    ml = torch.zeros(B, KV, 1, tfa.SPLIT_ROWS, 2)
+    ml[..., 0] = 0.5
+    ml[..., 1] = 2.0
+    ml[0, 1, 0, 1] = torch.tensor([ref.NEG_INF, 0.0])
+    acc = torch.randn(B, KV, 1, tfa.SPLIT_ROWS, hd)
+    acc[0, 1, 0, 1] = 0.0
+    out = ref.flash_combine_ref(ml, acc, H, Sq, torch.float32)
+    assert torch.allclose(out[0, 0, 0], acc[0, 0, 0, 0] / 2.0)
+    assert torch.equal(out[0, 3, 0], torch.zeros(hd))          # head 2 * 1 + 1
+
+
+def test_combine_wrapper_refuses_cpu_tensors_and_counts_no_launch():
+    """flash_combine launches on CUDA tensors or raises; it has its own
+    launch count."""
+    ml = torch.zeros(1, 2, 1, tfa.SPLIT_ROWS, 2)
+    acc = torch.zeros(1, 2, 1, tfa.SPLIT_ROWS, 16)
+    out = torch.empty(1, 4, 1, 16)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_combine(ml, acc, out)
+    assert _build.LAUNCHES == before
+    assert "flash_combine" in _build.LAUNCHES

@@ -186,3 +186,119 @@ def test_init_cache_rejects_bad_geometry():
         cache_device.init_cache(10, 4, device="cpu")
     with pytest.raises(ValueError):
         cache_device.init_cache(128, 128, device="cpu")
+
+
+def _skewed_ids(rng, num_sets, hot_sets, B, pool=4096):
+    """B ids (duplicates, ~10% -1 pads) that hash into `hot_sets` of the
+    num_sets sets only."""
+    cand = np.arange(pool, dtype=np.int32)
+    sets = cache_device._set_of(torch.from_numpy(cand), num_sets).numpy()
+    hot = cand[np.isin(sets, hot_sets)]
+    ids = rng.choice(hot[:40], B).astype(np.int32)
+    ids[rng.random(B) < 0.1] = -1
+    return ids
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_access_set_by_set_in_bucketed_order_matches_reference(seed):
+    """The kernel's decomposition: bucket the requests by set in stable
+    order, then apply access_ref set by set to each bucket.  On skewed ids
+    (a few hot sets, duplicates, pads) the state, hits and slots equal
+    cache_jax.access bit for bit, and serve / last_filler equal one
+    access_ref call over the whole batch."""
+    rng = np.random.default_rng(seed)
+    ways, num_sets = 4, 8
+    lines, B = ways * num_sets, 96
+    jstate = cache_jax.init_cache(lines, ways)
+    whole = cache_device.init_cache(lines, ways, device="cpu")
+    split = cache_device.init_cache(lines, ways, device="cpu")
+    for _ in range(4):
+        ids = _skewed_ids(rng, num_sets, [1, 5, 6], B)
+        fc = rng.integers(0, 3, B).astype(np.int32)
+        jstate, jhits, jslots = cache_jax.access(jstate, jnp.asarray(ids),
+                                                 jnp.asarray(fc))
+        want = cache_device.access(whole, torch.from_numpy(ids),
+                                   torch.from_numpy(fc))
+        order, start = cache_device.bucket_by_set_ref(torch.from_numpy(ids),
+                                                      num_sets)
+        hits = np.zeros(B, bool)
+        slots = np.full(B, -1, np.int32)
+        serve = np.full(B, -1, np.int32)
+        last_filler = np.full(lines, -1, np.int32)
+        for s in range(num_sets):
+            idx = order[start[s]:start[s + 1]].numpy()
+            assert (idx[1:] > idx[:-1]).all()        # request order
+            res = cache_device.access_ref(split, torch.from_numpy(ids[idx]),
+                                          torch.from_numpy(fc[idx]))
+            hits[idx] = res.hits.numpy()
+            slots[idx] = res.slots.numpy()
+            serve[idx] = res.serve_slots.numpy()
+            filled = res.last_filler.numpy() >= 0
+            last_filler[filled] = idx[res.last_filler.numpy()[filled]]
+        pads = order[start[num_sets]:].numpy()
+        assert (ids[pads] < 0).all() and (ids[order[:start[num_sets]]] >= 0).all()
+        np.testing.assert_array_equal(hits, np.asarray(jhits))
+        np.testing.assert_array_equal(slots, np.asarray(jslots))
+        np.testing.assert_array_equal(serve, want.serve_slots.numpy())
+        np.testing.assert_array_equal(last_filler, want.last_filler.numpy())
+        _state_equal(jstate, split)
+    assert int(split.hits) > 0 and int(split.bypasses) > 0
+
+
+def _tiled_counting_sort(keys: np.ndarray, n_keys: int, tile: int):
+    """cache_bucket's three passes in numpy: per-tile histograms and ranks
+    from earlier keys of the same tile, key totals scanned into starts,
+    then each request placed at start + earlier tiles' count + rank."""
+    B = len(keys)
+    tiles = -(-B // tile)
+    counts = np.zeros((tiles, n_keys), np.int64)
+    rank = np.zeros(B, np.int64)
+    for t in range(tiles):
+        ks = keys[t * tile:(t + 1) * tile]
+        for k, key in enumerate(ks):
+            rank[t * tile + k] = int((ks[:k] == key).sum())
+        counts[t] = np.bincount(ks, minlength=n_keys)
+    start = np.concatenate([[0], np.cumsum(counts.sum(0))])
+    order = np.empty(B, np.int64)
+    for i, key in enumerate(keys):
+        t = i // tile
+        order[start[key] + counts[:t, key].sum() + rank[i]] = i
+    return order, start            # start[n_keys] = B
+
+
+@pytest.mark.parametrize("tile", [7, 32, 1024])
+@pytest.mark.parametrize("skew", [False, True], ids=["uniform", "hot"])
+def test_bucket_by_set_equals_tiled_counting_sort(skew, tile):
+    """bucket_by_set (the plain version of cache_bucket) is the stable
+    argsort of the set, padding last, and equals the kernel's tiled
+    counting sort; start has num_sets + 2 entries ending at B."""
+    rng = np.random.default_rng(11)
+    num_sets, B = 16, 300
+    if skew:
+        ids = _skewed_ids(rng, num_sets, [3], B)
+    else:
+        ids = rng.integers(-1, 500, B).astype(np.int32)
+    ids_t = torch.from_numpy(ids)
+    order, start = cache_device.bucket_by_set(ids_t, num_sets)
+    assert order.dtype == torch.int32 and start.dtype == torch.int32
+    assert start.shape == (num_sets + 2,) and int(start[-1]) == B
+    sets = cache_device._set_of(ids_t, num_sets).numpy()
+    keys = np.where(ids >= 0, sets, num_sets)
+    want_order, want_start = _tiled_counting_sort(keys, num_sets + 1, tile)
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(start.numpy(), want_start)
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(keys, kind="stable"))
+
+
+def test_bucket_wrapper_refuses_cpu_tensors_and_counts_no_launch():
+    """CPU ids take the plain version; the kernel wrapper raises on them
+    and counts nothing."""
+    from repro_torch.kernels import _build
+    ids = torch.tensor([3, -1, 7], dtype=torch.int32)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        cache_device._bucket_cuda(ids, 4)
+    order, start = cache_device.bucket_by_set(ids, 4)
+    assert _build.LAUNCHES == before and "cache_bucket" in _build.LAUNCHES
+    assert int(start[-1]) == 3 and int(order[-1]) == 1      # the pad last
