@@ -10,8 +10,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    csrc (one nvcc per source, all started together, into build/kernels/).
 2. Per-kernel parity and timing at the main paths' shapes: each kernel
    against its plain PyTorch version on the same inputs (gathers, word
-   gather, row-store fill, cache bucketing and cache access exact;
-   segment_mean within 1e-6 in f32 and 2e-2 in bf16; flash_attention
+   gather, word reads, row-store fill, cache bucketing and cache access
+   exact; segment_mean within 1e-6 in f32 and 2e-2 in bf16, also at
+   fanouts 1, 3, 9 and 33 and at row widths 1000 and 1001; flash_attention
    within 3e-4 in f32 and 3e-2 in bf16, and every output row within 1e-4
    (f32) or 1e-2 (bf16) of its reference row in norm, at the sweep of
    tests/test_kernels.py, at the serving path's prefill, decode and a
@@ -20,7 +21,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    a ragged Sq of 1000 in bf16; the split-KV merge flash_combine within
    1e-5 in f32 and 1e-2 in bf16).  cache_access runs uniform rounds at
    B 8192 and 28000 and a round whose ids all hash into 4 sets, and
-   cache_bucket runs at its largest set count and refuses one more.  Times
+   cache_bucket runs at its largest set count and refuses one more.
+   frontier_read runs one batch's two hops of sampled positions through
+   real topology stores (and int64 words, all-cold and all-hot stores),
+   with the whole store call's host time beside the kernel's, and a bound
+   that counts the cold words' 32-byte sectors at the peak PCIe Gen5 x16
+   rate (the pinned H2D copy rate the run measures is printed beside it,
+   `pcie_h2d_gbps`).  Times
    are CUDA-event medians of 20 launches after warm-up, with a 256 MB
    buffer written and a short device sleep before each launch, so that
    every launch starts from a cold L2 and the host's enqueue time is
@@ -38,12 +45,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    for MERGED_STEPS steps (two merged windows of 8 batches): each window's
    unique rows go through the device store once and are expanded per batch
    by `tiered_gather_unique`, and every sampling hop reads its adjacency
-   words through the tiered edge-page store with `frontier_gather`.  Every
-   batch's features must equal the host features bit for bit, every hop's
-   words must equal `graph.indices[pos]`, step 0's loss must agree with the
-   plain versions' to rtol 1e-5, every loss must be finite, every batch
-   must carry priced sampling time, and each of the path's kernels must be
-   launched.
+   words through the tiered edge-page store with one `frontier_read`
+   launch (hot pages on the card, the rest read in place from the
+   adjacency in pinned host memory).  Every batch's features must equal the host features bit
+   for bit, every hop's words must equal `graph.indices[pos]`, step 0's
+   loss must agree with the plain versions' to rtol 1e-5, every loss must
+   be finite, every batch must carry priced sampling time, each of the
+   path's kernels must be launched, and `frontier_read` exactly once per
+   hop.  Each window prints the host time of its `frontier_gather` calls
+   and their median (`frontier_call_ms`).
 5. LM serving at the full published width of qwen2-1.5b (28 layers,
    d_model 1536, 12 heads, GQA kv 2, hd 128, d_ff 8960, padded vocab
    153600, 1,546,270,208 parameters) with `attn_impl="flash"`, weights
@@ -73,6 +83,14 @@ builds flash_attention.cu with a known fault planted (FAULTS) into a
 temporary directory, and shows that phase 2's bf16 gate passes the sound
 kernel and rejects the faulty one on the same inputs.
 
+    python3 chip_smoke.py --segment-mean-variants
+
+times the segment_mean kernel beside copies of it built with another
+order of its work, another batch of loads in flight or another scalar
+chunk, and beside the block-per-destination kernel it replaced
+(SEGMENT_MEAN_VARIANTS), in turns on the same inputs at every phase-2
+segment_mean row.
+
 The script imports torch, numpy and the port (src/repro_torch) only.
 """
 from __future__ import annotations
@@ -97,6 +115,9 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12       # f32 outside the tensor cores, same
 BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense, same
+#: PCIe Gen5 x16, one direction, after 128b/130b encoding (the data sheet's
+#: 128 GB/s counts both directions): the peak for reads of host memory
+PCIE_H2D_BYTES_PER_S = 63e9
 #: phase 5: the f32 gate and the bf16 serving run
 GATE = dict(prompt=512, steps=16, tol=1e-3)
 SERVE = dict(slots=8, max_seq=2048, requests=16, new_tokens=32)
@@ -198,6 +219,10 @@ def bound(nbytes: int, flops: int = 0,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")
+
+
 def summary(rows: list[dict]) -> dict:
     """One kernel's numbers per training step: the sum over the launches
     a step makes at the main path's shapes."""
@@ -211,17 +236,28 @@ def summary(rows: list[dict]) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
+#: segment_mean's rows: (B, F, D), the first two layer 0's aggregations
+#: per training step over an (8192, 1024) table; then fanouts across the
+#: kernel's batch of 8 neighbours (1, 3, 9, 33), a 1000-wide row (16-byte
+#: loads) and a 1001-wide one (the scalar path)
+SEGMENT_MEAN_CASES = ((512, 10, 1024), (5120, 5, 1024), (512, 1, 1024),
+                      (512, 3, 1024), (512, 9, 1024), (512, 33, 1024),
+                      (512, 10, 1000), (512, 10, 1001))
+
+
 def kernel_segment_mean(torch, timer, gen):
-    """(512, 10) and (5120, 5) over an (8192, 1024) table: layer 0's two
-    aggregations per training step."""
+    """SEGMENT_MEAN_CASES in f32 and bf16 over 8192-row tables, within 1e-6
+    (f32) and 2e-2 (bf16) of the plain version; the main path's numbers
+    are the first two cases in f32."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    N, D = 8192, 1024
-    feats32 = torch.randn((N, D), generator=gen, device="cuda")
+    N = 8192
+    tables = {D: torch.randn((N, D), generator=gen, device="cuda")
+              for D in sorted({c[2] for c in SEGMENT_MEAN_CASES})}
     main = []
     for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
-        feats = feats32.to(dtype)
-        for B, Fo in ((512, 10), (5120, 5)):
+        for B, Fo, D in SEGMENT_MEAN_CASES:
+            feats = tables[D].to(dtype)
             idx = torch.randint(0, N, (B, Fo), generator=gen, device="cuda",
                                 dtype=torch.int32)
             out = ops.segment_mean(idx, feats)
@@ -230,7 +266,7 @@ def kernel_segment_mean(torch, timer, gen):
             err = (out.float() - want.float()).abs().max().item()
             check(torch.allclose(out.float(), want.float(), rtol=tol,
                                  atol=tol),
-                  f"segment_mean {dtype} ({B},{Fo}) max_abs_err {err}")
+                  f"segment_mean {dtype} ({B},{Fo},{D}) max_abs_err {err}")
             idx64 = idx.long()
             nbytes = (int(torch.unique(idx).numel()) * D
                       * feats.element_size()
@@ -245,8 +281,9 @@ def kernel_segment_mean(torch, timer, gen):
                        idx64, feats, mode="mean")),
                    **bound(nbytes, flops=B * Fo * D + B * D)}
             emit(row)
-            if dtype == torch.float32:       # the main path's table type
+            if dtype == torch.float32 and len(main) < 2:   # the main path's
                 main.append(row)
+            del feats
     return summary(main)
 
 
@@ -368,6 +405,135 @@ def kernel_frontier_gather(torch, timer, gen):
         emit(row)
         rows.append(row)
     return summary(rows[:2])                 # the two hops of one batch
+
+
+def pcie_h2d_gbps(torch) -> float:
+    """The card's pinned host-to-device copy rate in GB/s: the median of 5
+    CUDA-event timed copies of 256 MB."""
+    n = 256 << 20
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return n / (statistics.median(times[1:]) * 1e-3) / 1e9
+
+
+def _hop_positions(np, graph):
+    """The edge positions of one batch's two hops, as the sampler hands
+    them to `frontier_gather`: 512 seeds, fanouts (10, 5)."""
+    from repro_torch.sampling.neighbor import run_sample_hops
+    rng = np.random.default_rng(0)
+    seeds = rng.choice(graph.num_nodes, FULL["batch"], replace=False)
+    hops = []
+
+    def read(pos):
+        hops.append(pos)
+        return graph.indices[pos]
+    run_sample_hops(graph, seeds, (10, 5), rng, read_words=read)
+    return hops
+
+
+def kernel_frontier_read(torch, timer, np):
+    """One batch's two hops through real topology stores over phase 3's
+    graph (100k nodes, 1,136,958 edges): hop 1 (5120 x 5 positions) and
+    hop 0 (512 x 10) on phase 4's store (degree admission, 0.25 hbm / 0.5
+    host); then hop 1 with int64 words (512-word pages), on a store with no
+    hot page (all cold) and on one with every page hot.  Exact against the
+    plain version (on the card, the host words copied to the card) and
+    against graph.indices.  `call_ms` is the host clock around the store's whole
+    `frontier_gather` call (H2D, launch, D2H), median of 20.  The bound
+    counts device-memory bytes (each position, page-table entry and
+    distinct hot word read once, each word written once) at 3.35 TB/s and
+    the distinct 32-byte sectors of the host words read over PCIe at the
+    link's peak (PCIE_H2D_BYTES_PER_S), and takes the larger; the run's
+    own pinned H2D copy rate is printed beside it.  Also shows that the
+    C entry point refuses pageable host memory (cudaErrorInvalidValue, 1)
+    and returns the device mapping of pinned memory."""
+    import ctypes
+    import dataclasses
+    from repro_torch.core.topology import TieredTopologyStore
+    from repro_torch.graph.synthetic import rmat_graph
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import tiered_gather as ttg
+    gbps = pcie_h2d_gbps(torch)
+    emit({"phase": "kernel", "name": "pcie_h2d", "pcie_h2d_gbps": gbps})
+    graph = rmat_graph(FULL["nodes"], 12, FULL["dim"], seed=0)
+    wide = dataclasses.replace(graph, indices=graph.indices.astype(np.int64))
+    hop0, hop1 = _hop_positions(np, graph)
+    cases = (("hop1", graph, 0.25, 0.5, hop1), ("hop0", graph, 0.25, 0.5, hop0),
+             ("hop1_int64", wide, 0.25, 0.5, hop1),
+             ("hop1_all_cold", graph, 0.0, 0.5, hop1),
+             ("hop1_all_hot", graph, 1.0, 0.0, hop1))
+    rows = []
+    for case, g, gpu, host, pos_np in cases:
+        store = TieredTopologyStore.from_graph(
+            g, gpu_fraction=gpu, host_fraction=host, device="cuda")
+        table, hot, words = store.page_table, store.hot_pages(), \
+            store.host_words()
+        check(words.is_pinned(),
+              f"frontier_read {case}: host words not pinned")
+        pos = torch.from_numpy(pos_np.reshape(-1)).cuda()
+        want_np = g.indices[pos_np.reshape(-1)]
+        words_dev = words.cuda()
+        out = ops.frontier_read(pos, table, hot, words)
+        want = ref.frontier_read_ref(pos, table, hot, words_dev)
+        torch.cuda.synchronize()
+        check(out.dtype == want.dtype and torch.equal(out, want)
+              and np.array_equal(out.cpu().numpy(), want_np),
+              f"frontier_read {case}")
+        check(np.array_equal(store.frontier_gather(pos_np),
+                             g.indices[pos_np]),
+              f"frontier_read {case}: the store's call")
+        W, w = store.page_words, hot.element_size()
+        page = pos // W
+        s = table[page].long()
+        hot_words = int(torch.unique((s * W + pos % W)[s >= 0]).numel())
+        sectors = int(torch.unique(pos[s < 0] * w // 32).numel())
+        hbm_bytes = (pos.numel() * 8 + int(torch.unique(page).numel()) * 4
+                     + hot_words * w + pos.numel() * w)
+        hbm_ms = hbm_bytes / HBM_BYTES_PER_S * 1e3
+        pcie_ms = sectors * 32 / PCIE_H2D_BYTES_PER_S * 1e3
+        for _ in range(WARMUP):
+            store.frontier_gather(pos_np)
+        row = {"phase": "kernel", "name": "frontier_read", "case": case,
+               "dtype": str(hot.dtype).removeprefix("torch."),
+               "shape": [pos.numel(), W, hot.shape[0], words.shape[0]],
+               "cold_reads": int((s < 0).sum()), "max_abs_err": 0.0,
+               "kernel_ms": timer(lambda: ops.frontier_read(pos, table, hot,
+                                                            words)),
+               "plain_ms": timer(lambda: ref.frontier_read_ref(
+                   pos, table, hot, words_dev)),
+               "call_ms": host_ms(lambda: store.frontier_gather(pos_np),
+                                  lambda: (), reps=REPS),
+               "library_ms": None, "bytes": hbm_bytes,
+               "pcie_sectors": sectors, "pcie_h2d_gbps": gbps,
+               "hbm_bound_ms": hbm_ms, "pcie_bound_ms": pcie_ms,
+               "bound_ms": max(hbm_ms, pcie_ms), "bound_by": "bytes",
+               "bound_link": "hbm" if hbm_ms >= pcie_ms else "pcie"}
+        emit(row)
+        rows.append(row)
+        del store, words_dev
+    # the device mapping: pinned memory has one, pageable memory none
+    fn = _build.function("frontier_gather", "frontier_mapped_pointer",
+                         (_build.P, ctypes.POINTER(ctypes.c_void_p)))
+    pageable = np.zeros(1 << 16, np.int32)
+    err = fn(pageable.ctypes.data, ctypes.byref(ctypes.c_void_p()))
+    pinned = torch.zeros(1 << 16, dtype=torch.int32, pin_memory=True)
+    check(err == 1 and ttg.mapped_pointer(pinned) != 0,
+          f"frontier_mapped_pointer returned {err} for pageable memory")
+    emit({"phase": "kernel", "name": "frontier_read", "case": "mapping",
+          "pageable_refused_with": err})
+    main = summary(rows[:2])                 # the two hops of one batch
+    main.update({"call_ms": rows[0]["call_ms"] + rows[1]["call_ms"],
+                 "pcie_h2d_gbps": gbps})
+    return main
 
 
 def kernel_store_fill(torch, timer, gen):
@@ -704,6 +870,111 @@ FAULTS = {
 }
 
 
+def _variant_libs(tmp: Path, kernel: str, sources: dict) -> dict:
+    """Build each {name: text} copy of csrc/<kernel>.cu into `tmp`, one nvcc
+    each, all started together; returns {name: ctypes.CDLL}."""
+    import ctypes
+    from repro_torch.kernels import _build
+    jobs = {}
+    for name, text in sources.items():
+        (tmp / f"{name}.cu").write_text(text)
+        jobs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp / f"{name}.so"),
+             str(tmp / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, job in jobs.items():
+        log = job.communicate()[0]
+        check(job.returncode == 0, f"nvcc failed on {kernel} {name}:\n{log}")
+    return {name: ctypes.CDLL(str(tmp / f"{name}.so")) for name in jobs}
+
+
+#: segment_mean.cu's warp-to-work order and batch choice, and what
+#: `--segment-mean-variants` puts in their place: the shipped kernel takes
+#: 512-byte chunks column stripe by column stripe and batches 8 or 2
+#: neighbours by grid size, and on the scalar path (a row width that is not
+#: a multiple of 16 bytes) 2 neighbours of 64-column chunks; the variants
+#: take the chunks row by row, batch 8 always, batch 2 always, row by row
+#: with 8 over 1 KB chunks, or 32 or 128 scalar columns per chunk; `block`
+#: is the block-per-destination kernel the shipped one replaced (a whole
+#: source, csrc/variants/segment_mean_block.cu)
+_CHUNK_MAJOR = ("const int64_t b = w % B;                               "
+                "// chunk-major\n  const int g0 = static_cast<int>(w / B) "
+                "* 32 * GROUPS + lane;")
+_ROW_MAJOR = ("const int64_t b = w / chunks;\n  const int g0 = "
+              "static_cast<int>(w % chunks) * 32 * GROUPS + lane;")
+_ADAPTIVE = "if (deep) {"
+_SCALAR = "return launch_as<T, 1, 2>("
+SEGMENT_MEAN_VARIANTS = {
+    "row_major": ((_CHUNK_MAJOR, _ROW_MAJOR),),
+    "batch_8": ((_ADAPTIVE, "if (true) {"),),
+    "batch_2": ((_ADAPTIVE, "if (false) {"),),
+    "row_major_batch_8_1kb": (
+        (_CHUNK_MAJOR, _ROW_MAJOR), (_ADAPTIVE, "if (true) {"),
+        ("return launch_as<T, kVec, 1>(", "return launch_as<T, kVec, 2>(")),
+    "scalar_32": ((_SCALAR, "return launch_as<T, 1, 1>("),),
+    "scalar_128": ((_SCALAR, "return launch_as<T, 1, 4>("),),
+    "block": "src/repro_torch/kernels/csrc/variants/segment_mean_block.cu",
+}
+
+
+def segment_mean_variants(torch) -> int:
+    """Times the shipped segment_mean kernel beside SEGMENT_MEAN_VARIANTS,
+    built into a temporary directory, in turns on the same inputs at every
+    SEGMENT_MEAN_CASES row over an 8192-row table, f32 and bf16, each held
+    to the plain version (1e-6 f32, 2e-2 bf16).  Returns 0 if every variant
+    agrees with the plain version."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import _build, ops, ref
+    source = (ROOT / SOURCES["segment_mean"][0]).read_text()
+    texts = {}
+    for name, edits in SEGMENT_MEAN_VARIANTS.items():
+        if isinstance(edits, str):
+            texts[name] = (ROOT / edits).read_text()
+            continue
+        text = source
+        for old, new in edits:
+            check(text.count(old) == 1, f"{name}: {old!r} not in the source")
+            text = text.replace(old, new)
+        texts[name] = text
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_variants_"))
+    ok = True
+    try:
+        sound = _build.library("segment_mean")
+        libs = {"shipped": sound, **_variant_libs(tmp, "segment_mean", texts)}
+        timer = Timer(torch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tables = {D: torch.randn((8192, D), generator=gen, device="cuda")
+                  for D in sorted({c[2] for c in SEGMENT_MEAN_CASES})}
+        for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
+            for B, Fo, D in SEGMENT_MEAN_CASES:
+                feats = tables[D].to(dtype)
+                idx = torch.randint(0, 8192, (B, Fo), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                want = ref.segment_mean_ref(idx, feats)
+                row = {"phase": "segment_mean_variants",
+                       "dtype": str(dtype).removeprefix("torch."),
+                       "shape": [B, Fo, 8192, D]}
+                # in turns: shipped, variants, shipped again
+                for name in ("shipped", *texts, "shipped_again"):
+                    _build._libs["segment_mean"] = libs[
+                        name.removesuffix("_again")]
+                    out = ops.segment_mean(idx, feats)
+                    torch.cuda.synchronize()
+                    agrees = torch.allclose(out.float(), want.float(),
+                                            rtol=tol, atol=tol)
+                    ok &= agrees
+                    row[name] = {"ms": timer(
+                        lambda: ops.segment_mean(idx, feats)),
+                        "agrees": agrees}
+                emit(row)
+                del feats
+        _build._libs["segment_mean"] = sound
+    finally:
+        shutil.rmtree(tmp)
+    return 0 if ok else 1
+
+
 def plant_fault(torch, fault: str) -> int:
     """Shows that phase 2's flash_attention gate rejects FAULTS[fault]: the
     faulty source is built into a temporary directory beside the sound
@@ -712,7 +983,6 @@ def plant_fault(torch, fault: str) -> int:
     whether allclose and the row-relative test pass); returns 0 if the
     gate passes the sound kernel on every row and rejects the fault on
     some row, else 1."""
-    import ctypes
     import shutil
     import tempfile
     from repro_torch.kernels import _build, ops, ref
@@ -722,15 +992,9 @@ def plant_fault(torch, fault: str) -> int:
           f"--plant-fault {fault}: {old!r} is not in the source once")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fault_"))
     try:
-        (tmp / "flash_attention.cu").write_text(source.replace(old, new))
-        nvcc = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp / "lib.so"),
-             str(tmp / "flash_attention.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        libs = {"sound": _build.library("flash_attention")}
-        log = nvcc.communicate()[0]
-        check(nvcc.returncode == 0, f"nvcc failed on the fault:\n{log}")
-        libs[fault] = ctypes.CDLL(str(tmp / "lib.so"))
+        libs = {"sound": _build.library("flash_attention"),
+                **_variant_libs(tmp, "flash_attention",
+                                {fault: source.replace(old, new)})}
         gen = torch.Generator(device="cuda").manual_seed(0)
         sound_ok, caught = True, []
         for case in FLASH_CASES:
@@ -947,12 +1211,14 @@ def merged_topology_path(torch, np):
     # graph.indices; hop_report sees the same hops' real edge reads
     hops = {"gathers": 0, "reports": 0, "reads": 0, "words": 0,
             "gather_ms": 0.0}
+    call_ms = []                     # host clock of each frontier_gather
     frontier_gather, hop_report = topo.frontier_gather, topo.hop_report
 
     def checked_frontier_gather(pos):
         t = time.perf_counter()
         out = frontier_gather(pos)
-        hops["gather_ms"] += (time.perf_counter() - t) * 1e3
+        call_ms.append((time.perf_counter() - t) * 1e3)
+        hops["gather_ms"] += call_ms[-1]
         check(np.array_equal(out, graph.indices[pos]),
               f"frontier_gather differs from graph.indices on hop "
               f"{hops['gathers']}")
@@ -982,10 +1248,12 @@ def merged_topology_path(torch, np):
     plan_window, execute_window = loader.plan_window, loader.execute_window
 
     def timed_plan_window():
-        t, g = time.perf_counter(), hops["gather_ms"]
+        t, g, n = time.perf_counter(), hops["gather_ms"], len(call_ms)
         plans = plan_window()
         windows.append({"sample_ms": (time.perf_counter() - t) * 1e3,
-                        "sample_frontier_gather_ms": hops["gather_ms"] - g})
+                        "sample_frontier_gather_ms": hops["gather_ms"] - g,
+                        "frontier_calls": len(call_ms) - n,
+                        "frontier_call_ms": statistics.median(call_ms[n:])})
         return plans
 
     def timed_execute_window(plans):
@@ -1086,6 +1354,7 @@ def merged_topology_path(torch, np):
     check(len(windows) == 2, f"expected 2 merged windows, ran {len(windows)}")
     check(hops["gathers"] == hops["reports"] > 0,
           f"{hops['gathers']} frontier gathers for {hops['reports']} hops")
+    hops["frontier_call_ms"] = statistics.median(call_ms)
     cache = tier.store.cache
     hits, misses = int(cache.hits), int(cache.misses)
     check(hits > 0, "the device cache never hit on the merged path")
@@ -1100,6 +1369,9 @@ def merged_topology_path(torch, np):
     for name in PATH_KERNELS[MERGED_PLANE]:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the merged path")
+    check(launches["frontier_read"] == hops["gathers"],
+          f"{launches['frontier_read']} frontier_read launches for "
+          f"{hops['gathers']} hops (one per hop expected)")
     return launches
 
 
@@ -1366,7 +1638,7 @@ def lm_profile(torch, np, engine, cfg, tick_ms: float) -> None:
 PATH_KERNELS = {
     "gids-device": ("segment_mean", "tiered_gather", "store_fill",
                     "cache_bucket", "cache_access"),
-    MERGED_PLANE: ("segment_mean", "tiered_gather_unique", "frontier_gather",
+    MERGED_PLANE: ("segment_mean", "tiered_gather_unique", "frontier_read",
                    "store_fill", "cache_bucket", "cache_access"),
     LM_PATH: ("flash_attention", "flash_combine"),
 }
@@ -1390,6 +1662,8 @@ SOURCES = {
                              "exact"),
     "frontier_gather": ("src/repro_torch/kernels/csrc/frontier_gather.cu",
                         "src/repro/kernels/tiered_gather.py:277", "exact"),
+    "frontier_read": ("src/repro_torch/kernels/csrc/frontier_gather.cu",
+                      "src/repro/kernels/tiered_gather.py:277", "exact"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:74",
                         "allclose 3e-4 f32, 3e-2 bf16; each row within "
@@ -1406,6 +1680,9 @@ def main() -> int:
     parser.add_argument("--plant-fault", choices=sorted(FAULTS),
                         help="instead of the run, show that phase 2's "
                         "flash_attention gate rejects this planted fault")
+    parser.add_argument("--segment-mean-variants", action="store_true",
+                        help="instead of the run, time the segment_mean "
+                        "kernel beside its SEGMENT_MEAN_VARIANTS")
     args = parser.parse_args()
     # the run uses one card: keep only the first visible one, so that the
     # device count on the last line is the number of cards that did the work
@@ -1427,6 +1704,8 @@ def main() -> int:
           f"{torch.cuda.device_count()} cards visible after pinning to one")
     if args.plant_fault:
         return plant_fault(torch, args.plant_fault)
+    if args.segment_mean_variants:
+        return segment_mean_variants(torch)
     card_and_build(torch)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1437,6 +1716,7 @@ def main() -> int:
                 "tiered_gather_unique": kernel_tiered_gather_unique(
                     torch, timer, gen),
                 "frontier_gather": kernel_frontier_gather(torch, timer, gen),
+                "frontier_read": kernel_frontier_read(torch, timer, np),
                 "flash_attention": kernel_flash_attention(torch, timer, gen),
                 "flash_combine": kernel_flash_combine(torch, timer, gen)}
     measured["cache_access"], measured["cache_bucket"] = kernel_cache_access(
@@ -1466,7 +1746,7 @@ def main() -> int:
                      "merged_window_bound_ms": window["bound_ms"],
                      "hot_4_sets_ms": hot["ms"]}
         else:
-            extra = {k: v for k, v in m.items() if k.startswith("prefill_")}
+            extra = {k: v for k, v in m.items() if k not in SUMMARY_KEYS}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "parity": parity,
                         "launches": sum(launches.values()),

@@ -8,9 +8,15 @@ across three tiers,
 
 placed by an admission policy from a registry (`degree`, `range`,
 `random`).  `hop_report` prices one sampling hop's edge reads from its
-unique pages per tier; `frontier_gather` is the device data path, reading
-each read's word through the `frontier_gather` kernel from the hot pages or
-from the staged non-resident pages.
+unique pages per tier; `frontier_gather` is the device data path: one
+`frontier_read` kernel reads each position's word where its tier keeps it,
+from the hot pages in device memory or, in place over PCIe, from the
+adjacency in pinned host memory at the position itself.
+
+The port keeps no storage device: storage-tier words are read from the
+same pinned adjacency as host-tier words (in this port they were always
+host memory, never a storage read).  What a storage read costs stays the
+priced `StorageTimeline` time of `hop_report`, which is unchanged.
 
 Assignments, page slots, scores, reports and priced times are bit-identical
 to the reference.  The `adaptive` admission (`TouchTable`), sharded page
@@ -184,7 +190,9 @@ class TieredTopologyStore:
     `indices[p*page_words : (p+1)*page_words]`); `page_slot[p]` is its row
     in the compacted hot-page array, -1 off the HBM tier.  The store owns
     its own `StorageTimeline`: the edge-page namespace drains its own
-    queues.  `device` is where the hot pages live and the kernel runs.
+    queues.  `device` is where the hot pages and `page_table` live and the
+    kernel runs; the adjacency that cold words are read from stays on the
+    host (one pinned copy on CUDA).
     """
 
     def __init__(self, graph, assignment: np.ndarray, *,
@@ -208,9 +216,17 @@ class TieredTopologyStore:
         gpu_pages = np.nonzero(self.assignment == TIER_HBM)[0]
         self.page_slot = np.full(self.n_pages, -1, np.int32)
         self.page_slot[gpu_pages] = np.arange(len(gpu_pages), dtype=np.int32)
-        self._gpu_pages = gpu_pages
-        self._hot_pages_dev: torch.Tensor | None = None
-        self._pinned: torch.Tensor | None = None
+        # the data path, built once: the page table and the hot pages on
+        # the device; cold words are read by position from the host
+        # adjacency (one pinned copy on CUDA, read in place)
+        self.page_table = torch.from_numpy(self.page_slot).to(self.device)
+        self._hot_pages_dev = torch.from_numpy(
+            self._page_rows(gpu_pages)).to(self.device)
+        words = torch.from_numpy(self.indices)
+        self._host_words = (words.pin_memory()
+                            if self.device.type == "cuda" else words)
+        # reused per-call buffers on CUDA (pinned in/out, device in/out)
+        self._io: tuple[torch.Tensor, ...] = ()
 
     # -- construction ----------------------------------------------------------
     @classmethod
@@ -279,67 +295,69 @@ class TieredTopologyStore:
         """The compacted HBM-resident hot-page array on the store's device,
         (H, page_words) in the adjacency dtype, uploaded once: row
         `page_slot[p]` holds page p.  A zero-budget store holds one dummy
-        row so that the plain version's clamped -1 slots stay in bounds."""
-        if self._hot_pages_dev is None:
-            rows = (self._page_rows(self._gpu_pages)
-                    if len(self._gpu_pages)
-                    else np.zeros((1, self.page_words), self.indices.dtype))
-            self._hot_pages_dev = torch.from_numpy(rows).to(self.device)
+        row so that the plain version's clamped rows stay in bounds."""
         return self._hot_pages_dev
+
+    def host_words(self) -> torch.Tensor:
+        """The adjacency (E,) on the host that cold words are read from by
+        their raw position: one pinned copy on CUDA, `graph.indices` itself
+        on the CPU.  Hot pages' words are never read from it."""
+        return self._host_words
 
     def _page_rows(self, pages: np.ndarray) -> np.ndarray:
         """Whole pages from the host CSR (the tail page padded by clamping:
-        offsets never address past the real edge count)."""
+        offsets never address past the real edge count); one zero row for
+        no pages."""
+        if len(pages) == 0:
+            return np.zeros((1, self.page_words), self.indices.dtype)
         idx = (np.asarray(pages, np.int64)[:, None] * self.page_words
                + np.arange(self.page_words, dtype=np.int64)[None, :])
         return self.indices[np.minimum(idx, len(self.indices) - 1)]
 
-    def _staged_pages(self, pages: np.ndarray, miss: np.ndarray
-                      ) -> torch.Tensor:
-        """(P, page_words) staged rows: the non-resident pages' words, zeros
-        for resident ones (the kernel never reads those).  On CUDA the rows
-        land in a pinned buffer; it is reused only after the previous
-        hop's result came back, which waited for the copy out of it."""
-        P, W = len(pages), self.page_words
-        if self.device.type == "cpu":
-            staged = np.zeros((P, W), self.indices.dtype)
-            staged[miss] = self._page_rows(pages[miss])
-            return torch.from_numpy(staged)
-        if self._pinned is None or self._pinned.shape[0] < P:
-            self._pinned = torch.empty(
-                (P, W), dtype=torch.from_numpy(self.indices[:0]).dtype,
-                pin_memory=True)
-        buf = self._pinned[:P]
-        view = buf.numpy()
-        view[~miss] = 0
-        view[miss] = self._page_rows(pages[miss])
-        return buf
+    def _buffers(self, n: int) -> tuple[torch.Tensor, ...]:
+        """Pinned positions and words on the host, and their device twins,
+        of at least n entries; grown by doubling, reused across calls."""
+        if not self._io or self._io[0].numel() < n:
+            cap = max(1 << max(n - 1, 1).bit_length(), 4096)
+            words = self._hot_pages_dev.dtype
+            self._io = (
+                torch.empty(cap, dtype=torch.int64, pin_memory=True),
+                torch.empty(cap, dtype=words, pin_memory=True),
+                torch.empty(cap, dtype=torch.int64, device=self.device),
+                torch.empty(cap, dtype=words, device=self.device))
+        return tuple(t[:n] for t in self._io)
 
     def frontier_gather(self, edge_positions: np.ndarray) -> np.ndarray:
         """The sampled words `graph.indices[edge_positions]`, read through
-        the tiered page store on the device: each unique touched page is
-        served from `hot_pages()` or, off the HBM tier, from its staged
-        rows, and the `frontier_gather` kernel reads each position's word.
-        Returns host numpy in the adjacency dtype, shaped like
-        `edge_positions`; bit-identical to `graph.indices[edge_positions]`."""
+        the tiered page store: the `frontier_read` kernel maps each
+        position to its page and reads its word from `hot_pages()` or, in
+        place at the position, from `host_words()`.  On CUDA one call is one H2D copy of
+        the positions, one launch and one D2H copy of the words, through
+        reused pinned buffers.  Returns host numpy in the adjacency dtype,
+        shaped like `edge_positions`; bit-identical to
+        `graph.indices[edge_positions]`."""
         pos = np.asarray(edge_positions, np.int64)
         flat = pos.reshape(-1)
         if len(flat) == 0:
             return np.empty(pos.shape, self.indices.dtype)
-        pages, inverse = np.unique(flat // self.page_words,
-                                   return_inverse=True)
-        offsets = (flat % self.page_words).astype(np.int32)
-        slots = self.page_slot[pages]
-        staged = self._staged_pages(pages, slots < 0)
-        dev = self.device
-        out = ops.tiered_frontier_gather(
-            torch.from_numpy(slots).to(dev, non_blocking=True),
-            self.hot_pages(),
-            staged.to(dev, non_blocking=True),
-            torch.from_numpy(inverse.reshape(-1).astype(np.int32)).to(
-                dev, non_blocking=True),
-            torch.from_numpy(offsets).to(dev, non_blocking=True))
-        return out.cpu().numpy().reshape(pos.shape)
+        lo, hi = flat.min(), flat.max()
+        if lo < 0 or hi >= len(self.indices):
+            raise IndexError(f"edge positions [{lo}, {hi}] outside the "
+                             f"{len(self.indices)} adjacency words")
+        if self.device.type == "cpu":
+            out = ops.frontier_read(torch.from_numpy(flat), self.page_table,
+                                    self._hot_pages_dev, self._host_words)
+            return out.numpy().reshape(pos.shape)
+        pos_host, out_host, pos_dev, out_dev = self._buffers(len(flat))
+        # the previous call synchronised after its copies, so the pinned
+        # buffers are free to overwrite
+        pos_host.numpy()[:] = flat
+        pos_dev.copy_(pos_host, non_blocking=True)
+        ops.frontier_read(pos_dev, self.page_table, self._hot_pages_dev,
+                          self._host_words, out=out_dev)
+        out_host.copy_(out_dev, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return out_host.numpy().copy().reshape(pos.shape)
 
 
 def host_sampling_time(reports) -> float:

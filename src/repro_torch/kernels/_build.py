@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("segment_mean", "tiered_gather", "store_fill", "cache_bucket",
      "cache_access", "tiered_gather_unique", "frontier_gather",
-     "flash_attention", "flash_combine"), 0)
+     "frontier_read", "flash_attention", "flash_combine"), 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 

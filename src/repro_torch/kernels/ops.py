@@ -42,13 +42,30 @@ def tiered_frontier_gather(page_slots: torch.Tensor, hot: torch.Tensor,
                            staged: torch.Tensor, inverse: torch.Tensor,
                            offsets: torch.Tensor) -> torch.Tensor:
     """One sampling hop's adjacency words: read n is word offsets[n] of
-    unique page inverse[n], served from the hot pages or its staged page
-    (`core.topology.TieredTopologyStore.frontier_gather`)."""
+    unique page inverse[n], served from the hot pages or its staged page.
+    The JAX package's contract; the topology store reads through
+    `frontier_read` instead."""
     if _on_cpu(page_slots, hot, staged, inverse, offsets):
         return ref.frontier_gather_ref(page_slots, hot, staged, inverse,
                                        offsets)
     return _tiered_gather.frontier_gather(page_slots, hot, staged, inverse,
                                           offsets)
+
+
+def frontier_read(pos: torch.Tensor, page_table: torch.Tensor,
+                  hot: torch.Tensor, words: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """The adjacency words at edge positions `pos` (N,) int64 of a paged
+    store: `page_table` maps each page to a hot row (>= 0) or to none (-1),
+    and a word off the hot pages is read from the whole adjacency `words`
+    (E,) at its position.  On CUDA, `pos`, `page_table`, `hot` and `out`
+    lie on the card and `words` in pinned host memory, read in place; the
+    result lands in `out` where given
+    (`core.topology.TieredTopologyStore.frontier_gather`)."""
+    if _on_cpu(pos, page_table, hot, words):
+        got = ref.frontier_read_ref(pos, page_table, hot, words)
+        return got if out is None else out.copy_(got)
+    return _tiered_gather.frontier_read(pos, page_table, hot, words, out)
 
 
 def segment_mean(idx: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:

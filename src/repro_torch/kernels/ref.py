@@ -30,6 +30,16 @@ def frontier_gather_ref(page_slots: torch.Tensor, hot: torch.Tensor,
     return pages[inverse.long(), offsets.long()]
 
 
+def frontier_read_ref(pos: torch.Tensor, page_table: torch.Tensor,
+                      hot: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """Word pos[n] % W of page pos[n] // W (W = hot.shape[1]) from hot row
+    page_table[page] where that is >= 0, else words[pos[n]]."""
+    W = hot.shape[1]
+    pos = pos.long()
+    s = page_table[pos // W].long()
+    return torch.where(s >= 0, hot[s.clamp_min(0), pos % W], words[pos])
+
+
 def segment_mean_ref(idx: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
     rows = feats[idx.long()]                      # (B, F, D)
     return rows.float().mean(dim=1).to(feats.dtype)

@@ -7,10 +7,15 @@ same over U unique rows, expanded to N output rows by an (N,) inverse
 without building the duplicated staged buffer.  `store_fill` writes the
 rows a cache access filled into the row store (in place).
 `frontier_gather`: one word per edge read, from its hot page or its staged
-page, in the adjacency's int32 or int64 words.  Slots, inverses, offsets
-and fillers must index real rows; the kernels do not check them.
+page, in the adjacency's int32 or int64 words.  `frontier_read`: one word
+per raw edge position, from its hot page on the device or from the
+adjacency in pinned host memory, read in place at the position through
+its device mapping.  Slots, inverses, offsets, positions, page tables and fillers
+must index real rows; the kernels do not check them.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -107,6 +112,64 @@ def frontier_gather(page_slots: torch.Tensor, hot: torch.Tensor,
                     inverse.data_ptr(), offsets.data_ptr(), out.data_ptr(), N,
                     hot.shape[1], hot.element_size(), _build.stream(hot)),
                  name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def mapped_pointer(host: torch.Tensor) -> int:
+    """The device address of a pinned host tensor, through which a kernel
+    reads it in place over PCIe; raises if the card cannot address it
+    (there is no staging fallback)."""
+    if host.device.type != "cpu" or not host.is_contiguous() \
+            or not host.is_pinned():
+        raise ValueError("frontier_read: the host words must be a "
+                         "contiguous pinned host tensor")
+    ptr = ctypes.c_void_p()
+    fn = _build.function("frontier_gather", "frontier_mapped_pointer",
+                         (_build.P, ctypes.POINTER(ctypes.c_void_p)))
+    err = fn(host.data_ptr(), ctypes.byref(ptr))
+    if err != 0 or not ptr.value:
+        raise RuntimeError(
+            f"frontier_read: the pinned host words at {host.data_ptr():#x} "
+            f"has no device mapping (CUDA error {err})")
+    return ptr.value
+
+
+def frontier_read(pos: torch.Tensor, page_table: torch.Tensor,
+                  hot: torch.Tensor, words: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """Words `pos` (N,) int64 of the paged adjacency: `page_table` (n_pages,)
+    int32 and `hot` (H, W) on the card, the whole adjacency `words` (E,)
+    pinned on the host; into `out` (N,) on the card where given."""
+    name = "frontier_read"
+    _build.require_cuda(name, pos, page_table, hot)
+    if hot.dim() != 2 or hot.dtype not in _WORDS:
+        raise ValueError(f"{name}: hot pages must be (H, W) int32 or int64 "
+                         f"words, got {tuple(hot.shape)} {hot.dtype}")
+    if words.dim() != 1 or words.dtype != hot.dtype:
+        raise ValueError(f"{name}: host words {tuple(words.shape)} "
+                         f"{words.dtype} are not (E,) {hot.dtype}")
+    if pos.dtype != torch.int64 or pos.dim() != 1:
+        raise ValueError(f"{name}: pos must be (N,) int64, got "
+                         f"{tuple(pos.shape)} {pos.dtype}")
+    _check_index(name, "page_table", page_table, page_table.numel())
+    N = pos.numel()
+    if out is None:
+        out = torch.empty((N,), dtype=hot.dtype, device=hot.device)
+    elif out.shape != (N,) or out.dtype != hot.dtype \
+            or out.device != hot.device or not out.is_contiguous():
+        raise ValueError(f"{name}: out must be ({N},) {hot.dtype} on "
+                         f"{hot.device}, got {tuple(out.shape)} {out.dtype} "
+                         f"on {out.device}")
+    if N == 0:
+        return out
+    words_dev = mapped_pointer(words)
+    fn = _build.function("frontier_gather", name,
+                         (_build.P, _build.P, _build.P, _build.P, _build.P,
+                          _build.LL, _build.LL, _build.I, _build.P))
+    _build.check(fn(pos.data_ptr(), page_table.data_ptr(), hot.data_ptr(),
+                    words_dev, out.data_ptr(), N, hot.shape[1],
+                    hot.element_size(), _build.stream(hot)), name)
     _build.LAUNCHES[name] += 1
     return out
 

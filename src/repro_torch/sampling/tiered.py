@@ -10,9 +10,11 @@ reports and times are bit-identical to the reference.
 
 Unlike the reference, which reads the sampled words on the host, the port
 reads them through the store's device data path
-(`TieredTopologyStore.frontier_gather`, the `frontier_gather` kernel on
-CUDA); those words equal `graph.indices[pos]` bit for bit, so the blocks
-are unchanged.  Tracing waits for the obs slice (ROADMAP.md Queue 1).
+(`TieredTopologyStore.frontier_gather`: on CUDA one `frontier_read` launch
+per hop, hot words from device memory and the rest read in place from the
+adjacency in pinned host memory); those words equal `graph.indices[pos]`
+bit for bit, so the blocks are unchanged.  Tracing waits for the obs
+slice (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 

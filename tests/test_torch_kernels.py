@@ -145,9 +145,80 @@ def test_frontier_gather_matches_reference(H, W, P, N):
     np.testing.assert_array_equal(wide.numpy(), want)
 
 
+def _paged(indices: np.ndarray, W: int, hot_pages: np.ndarray):
+    """A paged adjacency as the topology store lays it out: the (n_pages,)
+    page table (hot row, -1 off the hot tier) and the hot pages (tail page
+    padded by clamping, one dummy row for an empty tier); cold words are
+    read from `indices` itself."""
+    n_pages = -(-len(indices) // W)
+    hot_pages = np.sort(hot_pages)
+    table = np.full(n_pages, -1, np.int32)
+    table[hot_pages] = np.arange(len(hot_pages))
+
+    def rows(pages):
+        if len(pages) == 0:
+            return np.zeros((1, W), indices.dtype)
+        idx = pages[:, None] * W + np.arange(W)[None, :]
+        return indices[np.minimum(idx, len(indices) - 1)]
+    return table, rows(hot_pages), rows
+
+
+@pytest.mark.parametrize("words", [np.int32, np.int64])
+@pytest.mark.parametrize("W", [1024, 512, 1000])
+@pytest.mark.parametrize("hot_share", [0.3, 1.0, 0.0])
+def test_frontier_read_matches_reference(W, words, hot_share):
+    """`ops.frontier_read` on CPU tensors (the plain version) is exact
+    against `ops.tiered_frontier_gather` of the JAX package, its Pallas path
+    in interpret mode and its oracle, fed the unique pages, slots, staged
+    non-resident pages, inverse and offsets of the same positions; mixed,
+    all-hot and all-cold (zero-budget) stores, the last edge position of
+    the tail page included, and an empty input."""
+    rng = np.random.default_rng(W + int(hot_share * 10))
+    E = 23 * W + W // 3                           # a ragged tail page
+    indices = rng.integers(0, 1 << 30, E).astype(words)
+    n_pages = -(-E // W)
+    hot = rng.permutation(n_pages)[:round(hot_share * n_pages)]
+    table, hot_rows, rows = _paged(indices, W, hot)
+    pos = np.concatenate([rng.integers(0, E, 600), [E - 1, 0]])
+    out = ops.frontier_read(torch.from_numpy(pos), torch.from_numpy(table),
+                            torch.from_numpy(hot_rows),
+                            torch.from_numpy(indices))
+    assert out.dtype == torch.from_numpy(indices[:0]).dtype
+    np.testing.assert_array_equal(out.numpy(), indices[pos])
+    pages, inverse = np.unique(pos // W, return_inverse=True)
+    slots = table[pages]
+    staged = np.zeros((len(pages), W), words)
+    staged[slots < 0] = rows(pages[slots < 0])
+    jargs = [jnp.asarray(x) for x in (slots, hot_rows, staged,
+                                      inverse.astype(np.int32),
+                                      (pos % W).astype(np.int32))]
+    for use_pallas in (True, False):
+        np.testing.assert_array_equal(
+            out.numpy(), np.asarray(jops.tiered_frontier_gather(
+                *jargs, use_pallas=use_pallas)))
+    empty = ops.frontier_read(torch.zeros(0, dtype=torch.int64),
+                              torch.from_numpy(table),
+                              torch.from_numpy(hot_rows),
+                              torch.from_numpy(indices))
+    assert empty.shape == (0,) and empty.dtype == out.dtype
+
+
+def test_frontier_read_fills_out_in_place():
+    indices = np.arange(3000, dtype=np.int32) * 7
+    table, hot, _ = _paged(indices, 1024, np.array([1]))
+    pos = torch.tensor([0, 1500, 2999, 1024], dtype=torch.int64)
+    out = torch.full((4,), -5, dtype=torch.int32)
+    got = ops.frontier_read(pos, torch.from_numpy(table),
+                            torch.from_numpy(hot), torch.from_numpy(indices),
+                            out=out)
+    assert got is out
+    np.testing.assert_array_equal(out.numpy(), indices[pos.numpy()])
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("B,F,N,D", [(16, 5, 100, 128), (64, 10, 1000, 256),
-                                     (8, 25, 64, 512), (7, 3, 50, 100)])
+                                     (8, 25, 64, 512), (7, 3, 50, 100),
+                                     (9, 1, 40, 64), (6, 33, 70, 512)])
 def test_segment_mean_matches_reference(B, F, N, D, dtype):
     """Allclose against the JAX oracle and the Pallas kernel, with the
     tolerances of test_kernels.py (1e-6 f32, 2e-2 bf16): the Pallas kernel
@@ -195,6 +266,9 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     ops.tiered_frontier_gather(slots, pages, torch.zeros((4, 16),
                                                          dtype=torch.int32),
                                inverse, inverse)
+    table = torch.tensor([0, -1, -1], dtype=torch.int32)
+    ops.frontier_read(torch.tensor([0, 17, 40], dtype=torch.int64), table,
+                      pages, torch.arange(48, dtype=torch.int32))
     assert _build.LAUNCHES == before
 
 
@@ -216,6 +290,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ttg.frontier_gather(i32, torch.zeros((4, 8), dtype=torch.int32),
                             torch.zeros((2, 8), dtype=torch.int32), i32, i32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttg.frontier_read(torch.zeros(2, dtype=torch.int64), i32,
+                          torch.zeros((4, 8), dtype=torch.int32),
+                          torch.zeros(32, dtype=torch.int32))
+
+
+def test_cold_mirror_must_be_pinned():
+    """The kernel reads cold words in place from the host adjacency through
+    its device mapping: a pageable host tensor is refused before any
+    build, with no staging fallback."""
+    with pytest.raises(ValueError, match="pinned"):
+        ttg.mapped_pointer(torch.zeros(32, dtype=torch.int32))
+    assert _build._libs == {}
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -9,14 +9,16 @@ torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
 
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import topology as jtopo  # noqa: E402
 from repro.graph.synthetic import rmat_graph as jrmat  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.sampling.tiered import tiered_sample_blocks as jtiered  # noqa: E402
 from repro_torch.core import topology as ttopo  # noqa: E402
 from repro_torch.graph.synthetic import rmat_graph  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.sampling.neighbor import host_sample_blocks  # noqa: E402
 from repro_torch.sampling.tiered import tiered_sample_blocks  # noqa: E402
 
@@ -78,11 +80,13 @@ def test_hop_report_matches_reference(graphs, admission):
 @pytest.mark.parametrize("gpu,host", BUDGETS)
 def test_frontier_gather_equals_adjacency(graphs, gpu, host):
     """The CPU data path equals graph.indices[pos] exactly, for any budget
-    (zero-budget stores included) and any position shape, and equals the
-    reference's Pallas path; a CPU store launches no kernel."""
+    (zero-budget stores included) and any position shape, the last edge
+    position included, and equals the reference's Pallas path; a CPU store
+    launches no kernel and pins nothing."""
     a, b = _stores(graphs, "degree", gpu, host)
     tg = graphs[1]
     pos = np.random.default_rng(6).integers(0, tg.num_edges, 4096)
+    pos[-1] = tg.num_edges - 1
     before = dict(_build.LAUNCHES)
     out = b.frontier_gather(pos)
     assert out.dtype == tg.indices.dtype
@@ -91,10 +95,73 @@ def test_frontier_gather_equals_adjacency(graphs, gpu, host):
     grid = pos[:600].reshape(30, 20)
     np.testing.assert_array_equal(b.frontier_gather(grid), tg.indices[grid])
     assert b.frontier_gather(pos[:0]).shape == (0,)
+    with pytest.raises(IndexError):
+        b.frontier_gather(np.array([tg.num_edges]))
     assert _build.LAUNCHES == before
+    assert not b.host_words().is_pinned() and b._io == ()
     hot = b.hot_pages()
     assert hot.shape == (max(b.tier_pages()[0], 1), b.page_words)
     assert hot is b.hot_pages()                       # uploaded once
+
+
+@pytest.mark.parametrize("gpu,host", BUDGETS)
+def test_page_table_and_cold_mirror_match_reference(graphs, gpu, host):
+    """The page table is the reference's page slots (-1 off the hot tier),
+    the hot pages are the reference's, and cold words are read from the
+    adjacency itself, so every non-resident page's words sit at their own
+    positions."""
+    a, b = _stores(graphs, "degree", gpu, host)
+    np.testing.assert_array_equal(b.page_table.numpy(), a.page_slot)
+    np.testing.assert_array_equal(b.hot_pages().numpy(),
+                                  np.asarray(a.hot_pages()))
+    cold = np.nonzero(a.page_slot < 0)[0]
+    words = b.host_words().numpy()
+    np.testing.assert_array_equal(words, graphs[1].indices)
+    if len(cold):
+        np.testing.assert_array_equal(
+            words[np.minimum(cold[:, None] * b.page_words
+                             + np.arange(b.page_words), len(words) - 1)],
+            a._page_rows(cold))
+
+
+@pytest.mark.parametrize("words,page_bytes", [(np.int32, 4096),
+                                              (np.int64, 4096),
+                                              (np.int32, 2048)])
+@pytest.mark.parametrize("gpu,host", [(0.25, 0.5), (1.0, 0.0), (0.0, 0.5)])
+def test_frontier_read_ref_matches_reference_store(graphs, gpu, host, words,
+                                                   page_bytes):
+    """`ref.frontier_read_ref` over the port store's page table, hot pages
+    and host adjacency is exact against the JAX package's
+    `ops.tiered_frontier_gather` (Pallas in interpret mode, and its oracle)
+    fed the slots, staged pages, inverse and offsets the reference store
+    builds from the same seeded positions: int32 and int64 words, 1024- and
+    512-word pages, mixed, all-hot and zero-budget stores, the last edge
+    position (tail page) and an empty input."""
+    jg, tg = (dataclasses.replace(g, indices=g.indices.astype(words))
+              for g in graphs)
+    kw = dict(gpu_fraction=gpu, host_fraction=host, page_bytes=page_bytes)
+    a = jtopo.TieredTopologyStore.from_graph(jg, **kw)
+    b = ttopo.TieredTopologyStore.from_graph(tg, device="cpu", **kw)
+    pos = np.random.default_rng(8).integers(0, tg.num_edges, 1500)
+    pos[-1] = tg.num_edges - 1
+    W = a.page_words
+    pages, inverse = np.unique(pos // W, return_inverse=True)
+    slots = a.page_slot[pages]
+    staged = np.zeros((len(pages), W), jg.indices.dtype)
+    staged[slots < 0] = a._page_rows(pages[slots < 0])
+    jargs = (jnp.asarray(slots), a.hot_pages(), jnp.asarray(staged),
+             jnp.asarray(inverse.astype(np.int32)),
+             jnp.asarray((pos % W).astype(np.int32)))
+    args = (b.page_table, b.hot_pages(), b.host_words())
+    out = ref.frontier_read_ref(torch.from_numpy(pos), *args)
+    assert out.dtype == torch.from_numpy(tg.indices[:0]).dtype
+    np.testing.assert_array_equal(out.numpy(), tg.indices[pos])
+    for use_pallas in (True, False):
+        np.testing.assert_array_equal(
+            out.numpy(), np.asarray(jops.tiered_frontier_gather(
+                *jargs, use_pallas=use_pallas)))
+    assert ref.frontier_read_ref(torch.zeros(0, dtype=torch.int64),
+                                 *args).shape == (0,)
 
 
 @pytest.mark.parametrize("admission", ADMISSIONS)
