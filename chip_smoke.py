@@ -54,6 +54,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    path's kernels must be launched, and `frontier_read` exactly once per
    hop.  Each window prints the host time of its `frontier_gather` calls
    and their median (`frontier_call_ms`).
+4b. The host planes: the same model and graph through `gids-async`
+   (HOST_STEPS steps, `next_batch(compute_s=...)` given the last measured,
+   synchronised train step) and `gids-merged-async` (HOST_STEPS steps, two
+   merged windows consumed).  The numpy window cache decides hits and
+   fills on the host; its row store on the card serves the hits through
+   `tiered_gather` (`tiered_gather_unique` per batch of a merged window)
+   and `store_fill` writes the lines a probe filled.  Gates: every batch's
+   features equal the host features bit for bit when the batch is
+   consumed, after later batches were staged; after every probe and every
+   step each resident line of the row store holds its tag's row; step 0's
+   loss agrees with the plain versions' (the first gather's plain version
+   and `segment_mean_ref`) to rtol 1e-5; every loss is finite; every batch
+   after the first (the first window on the merged plane) hits the cache;
+   `exposed_prep_s <= prep_time_s`; the gather launched once per staged
+   batch, `segment_mean` twice a step, and `store_fill` at all.  Each step
+   prints its `next_batch` host ms split into the numpy probe, host
+   staging, H2D, gather and fill of the probes it made, the train ms, the
+   rows, hits and staged rows, the H2D bytes against the bytes the staged
+   rows need, and the priced and exposed prep.  Then FEATURE_BATCHES
+   batches each of `bam`, `mmap` and `pinned-host`, each checked bit for
+   bit against the host features.
 5. LM serving at the full published width of qwen2-1.5b (28 layers,
    d_model 1536, 12 heads, GQA kv 2, hd 128, d_ff 8960, padded vocab
    153600, 1,546,270,208 parameters) with `attn_impl="flash"`, weights
@@ -1375,6 +1396,221 @@ def merged_topology_path(torch, np):
     return launches
 
 
+#: phase 4b: the two host planes trained on, and the planes driven for
+#: their features only
+HOST_PLANES = ("gids-async", "gids-merged-async")
+FEATURE_PLANES = ("bam", "mmap", "pinned-host")
+HOST_STEPS, FEATURE_BATCHES = 16, 4
+
+
+def _check_row_store(torch, tier, host_feats, what: str) -> None:
+    """Every resident line of the window cache's row store holds its tag's
+    feature row, bit for bit."""
+    tags = torch.from_numpy(tier.cache.tags.reshape(-1)).to(DEVICE)
+    resident = tags >= 0
+    check(torch.equal(tier.rows[resident], host_feats[tags[resident]]),
+          f"{what}: a resident line of the row store differs from its "
+          "tag's feature row")
+
+
+def _host_loader(torch, graph, feats, cfg, plane):
+    from repro_torch.core import INTEL_OPTANE, GIDSDataLoader, LoaderConfig
+    return GIDSDataLoader(
+        graph, feats,
+        LoaderConfig(batch_size=FULL["batch"], fanouts=cfg.fanouts,
+                     data_plane=plane, cache_lines=FULL["cache_lines"],
+                     window_depth=8, cbuf_fraction=0.1),
+        ssd=INTEL_OPTANE, device=DEVICE)
+
+
+def host_plane_path(torch, np, plane, work, host_feats) -> dict:
+    """HOST_STEPS training steps on one host plane through
+    `next_batch(compute_s=last_step_s)`: the numpy window cache on the
+    host, its row store on the card serving the hits."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models.gnn import hop_indices, sgd_step
+    graph, labels_all, feats, cfg, gnn = work
+    loader = _host_loader(torch, graph, feats, cfg, plane)
+    tier = loader.store.tiers[0]
+    merged = loader.plane.merge_execute
+    gather_name = "tiered_gather_unique" if merged else "tiered_gather"
+    labels_dev = torch.from_numpy(labels_all).to(DEVICE)
+
+    # every probe: its split and counts, and the row-store invariant
+    probes = []
+    probe_rows = tier._probe_rows
+
+    def recorded_probe(*args):
+        hits = probe_rows(*args)
+        _check_row_store(torch, tier, host_feats, f"{plane} probe "
+                                                  f"{len(probes)}")
+        probes.append({"split": dict(tier.last_split_ms),
+                       "counts": dict(tier.last_counts)})
+        return hits
+
+    # the first gather's plain version on the same inputs (not a launch),
+    # for the step-0 parity
+    plain0 = []
+    gather = getattr(ops, gather_name)
+    plain = getattr(ref, gather_name + "_ref")
+
+    def gather_and_plain(*args):
+        out = gather(*args)
+        if not plain0:
+            plain0.append(plain(*args))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, last_step_s, warm = [], 0.0, 1
+    with mock.patch.object(tier, "_probe_rows", recorded_probe):
+        _build.reset_launches()
+        for step in range(HOST_STEPS):
+            n_probes, given = len(probes), last_step_s
+            t_start = time.perf_counter()
+            if step == 0:
+                with mock.patch.object(ops, gather_name, gather_and_plain):
+                    batch = loader.next_batch(compute_s=last_step_s)
+            else:
+                batch = loader.next_batch(compute_s=last_step_s)
+            t_batch = time.perf_counter()
+            nodes = torch.from_numpy(batch.blocks.all_nodes).to(DEVICE)
+            hi = [torch.from_numpy(i).to(DEVICE)
+                  for i in hop_indices(batch.blocks)]
+            y = labels_dev[torch.from_numpy(batch.blocks.seeds).to(DEVICE)]
+            if step == 0:
+                warm = batch.report.window_batches if merged else 1
+                saved = dict(_build.LAUNCHES)
+                check(len(plain0) == 1
+                      and torch.equal(plain0[0], batch.features),
+                      f"{plane} step 0: {gather_name} differs from its "
+                      "plain version on the path")
+                with torch.no_grad():
+                    loss_kernel = gnn.loss(batch.features, hi, y).item()
+                    with mock.patch.object(ops, "segment_mean",
+                                           ref.segment_mean_ref):
+                        loss_plain = gnn.loss(plain0[0], hi, y).item()
+                _build.LAUNCHES.update(saved)
+                plain0.clear()
+                rel = abs(loss_kernel - loss_plain) / abs(loss_plain)
+                emit({"phase": "step0_parity", "plane": plane,
+                      "loss_kernel": loss_kernel, "loss_plain": loss_plain,
+                      "rel_err": rel})
+                check(rel <= 1e-5, f"{plane} step-0 loss {loss_kernel} vs "
+                                   f"plain {loss_plain}")
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ts = time.perf_counter()
+            ev0.record()
+            loss = sgd_step(gnn, batch.features, hi, y, 0.05)
+            ev1.record()
+            loss_v = loss.item()                  # synchronises the step
+            t_end = time.perf_counter()
+            if step > 0:               # step 0 pays the first cuBLAS calls
+                last_step_s = t_end - ts
+            # consumed after later batches were staged and their fills landed
+            check(batch.features.device.type == DEVICE
+                  and torch.equal(batch.features, host_feats[nodes]),
+                  f"{plane} step {step}: features differ from "
+                  "host_features[all_nodes]")
+            _check_row_store(torch, tier, host_feats, f"{plane} step {step}")
+            check(np.isfinite(loss_v), f"{plane} step {step}: loss {loss_v}")
+            check(batch.exposed_prep_s <= batch.prep_time_s,
+                  f"{plane} step {step}: exposed prep {batch.exposed_prep_s}"
+                  f" above prep {batch.prep_time_s}")
+            check(step < warm or batch.report.n_hbm_hits > 0,
+                  f"{plane} step {step}: no cache hit after warm-up")
+            made = probes[n_probes:]
+            split = {f"{k}_ms": sum(p["split"].get(k, 0.0) for p in made)
+                     for k in ("probe", "stage_host", "h2d", "gather",
+                               "fill")}
+            counts = {k: sum(p["counts"][k] for p in made)
+                      for k in ("rows", "hits", "staged_rows", "h2d_bytes",
+                                "needed_bytes")}
+            steps.append({"phase": "step", "plane": plane, "step": step,
+                          "loss": loss_v,
+                          "batch_rows": int(batch.report.n_requests),
+                          "batch_hbm_hits": int(batch.report.n_hbm_hits),
+                          "next_batch_ms": (t_batch - t_start) * 1e3,
+                          "probes": len(made), **split,
+                          "probed": counts,
+                          "train_ms": ev0.elapsed_time(ev1),
+                          "wall_ms": (t_end - t_start) * 1e3,
+                          "compute_s_given": given,
+                          "prep_time_s": batch.prep_time_s,
+                          "exposed_prep_s": batch.exposed_prep_s})
+            emit(steps[-1])
+        launches = dict(_build.LAUNCHES)
+    staged = loader.prefetch.stats.staged_batches
+    stats = loader.store.cache.stats
+    check(stats.hits > 0, f"the window cache never hit on {plane}")
+    # medians of the steps that probed once, after the first
+    probing = [s for s in steps[1:] if s["probes"] == 1]
+    median = {k: statistics.median(s[k] for s in probing)
+              for k in ("next_batch_ms", "probe_ms", "stage_host_ms",
+                        "h2d_ms", "gather_ms", "fill_ms")} if probing else {}
+    median.update({k: statistics.median(s[k] for s in steps[1:])
+                   for k in ("train_ms", "wall_ms", "prep_time_s",
+                             "exposed_prep_s")})
+    emit({"phase": "main_path", "plane": plane, "steps": HOST_STEPS,
+          "staged_batches": staged, "probes": len(probes),
+          "launches": launches, "hit_ratio": stats.hit_ratio,
+          "prefetch_hidden_fraction": loader.prefetch.stats.hidden_fraction,
+          "median_of_steps_1_on": median,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    for name in PATH_KERNELS[plane]:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {plane} path")
+    check(launches[gather_name] == staged,
+          f"{launches[gather_name]} {gather_name} launches for {staged} "
+          "staged batches (one a batch expected)")
+    check(launches["segment_mean"] == 2 * HOST_STEPS,
+          f"{launches['segment_mean']} segment_mean launches for "
+          f"{HOST_STEPS} steps (two a step expected)")
+    return launches
+
+
+def feature_planes(torch, np, work, host_feats) -> None:
+    """FEATURE_BATCHES batches of each FEATURE_PLANES plane, features only:
+    each batch's rows equal the host features bit for bit (and on `bam` the
+    row store stays coherent)."""
+    graph, _, feats, cfg, _ = work
+    for plane in FEATURE_PLANES:
+        loader = _host_loader(torch, graph, feats, cfg, plane)
+        top = loader.store.tiers[0]
+        times = []
+        for i in range(FEATURE_BATCHES):
+            t = time.perf_counter()
+            batch = loader.next_batch()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            nodes = torch.from_numpy(batch.blocks.all_nodes).to(DEVICE)
+            check(batch.features.device.type == DEVICE
+                  and torch.equal(batch.features, host_feats[nodes]),
+                  f"{plane} batch {i}: features differ from "
+                  "host_features[all_nodes]")
+            if hasattr(top, "cache"):
+                _check_row_store(torch, top, host_feats, f"{plane} batch {i}")
+        emit({"phase": "features_only", "plane": plane,
+              "batches": FEATURE_BATCHES, "next_batch_ms": times,
+              "tier_counts": list(batch.report.tier_counts),
+              "prep_time_s": batch.prep_time_s})
+
+
+def host_planes(torch, np) -> dict:
+    """Phase 4b: HOST_PLANES trained on, then FEATURE_PLANES."""
+    t0 = time.perf_counter()
+    work = workload(torch, np)
+    host_feats = torch.from_numpy(work[2]).to(DEVICE)
+    emit({"phase": "setup", "plane": "host planes",
+          "seconds": round(time.perf_counter() - t0, 3)})
+    by_path = {plane: host_plane_path(torch, np, plane, work, host_feats)
+               for plane in HOST_PLANES}
+    feature_planes(torch, np, work, host_feats)
+    return by_path
+
+
 LM_PATH = "lm-serve"
 
 
@@ -1640,6 +1876,9 @@ PATH_KERNELS = {
                     "cache_bucket", "cache_access"),
     MERGED_PLANE: ("segment_mean", "tiered_gather_unique", "frontier_read",
                    "store_fill", "cache_bucket", "cache_access"),
+    "gids-async": ("segment_mean", "tiered_gather", "store_fill"),
+    "gids-merged-async": ("segment_mean", "tiered_gather_unique",
+                          "store_fill"),
     LM_PATH: ("flash_attention", "flash_combine"),
 }
 
@@ -1729,6 +1968,8 @@ def main() -> int:
     del timer
     by_path = {"gids-device": main_path(torch, np)}
     by_path[MERGED_PLANE] = merged_topology_path(torch, np)
+    torch.cuda.empty_cache()
+    by_path.update(host_planes(torch, np))
     torch.cuda.empty_cache()
     lm_gate_f32(torch, np)
     torch.cuda.empty_cache()

@@ -1,14 +1,14 @@
 """Declarative data-plane composition, the port's subset of
 `repro.core.dataplane`: `DataPlaneSpec`, the tier-kind registry with the
-`device_store`, `constant_buffer`, `storage` and `kv_slots` kinds, the
-`gids-device` preset with its `merge_execute` and `topology` options, and
-the serve engine's `serve-kv` preset.  The other presets wait for their
-slices (ROADMAP.md Queue 1); `gids-merged*` and `gids-topo*` need the numpy
-`window_cache` tier of the host planes.
+`window_cache`, `device_store`, `constant_buffer`, `storage` and
+`kv_slots` kinds, the paper's host planes (`gids`, `bam`, `mmap`,
+`gids-async`, `pinned-host`) with their merged (`gids-merged*`) and
+topology (`gids-topo*`) presets, the device-resident `gids-device`
+preset, and the serve engine's `serve-kv` preset.  The sharded, host and
+GNN-serving presets wait for their slices (ROADMAP.md Queue 1).
 
-    spec = DataPlaneSpec.preset("gids-device", merge_execute=True,
-                                topology=True)
-    plane = spec.build(graph, features, device="cuda")
+    plane = DataPlaneSpec.preset("gids").build(graph, features,
+                                               device="cuda")
     rows, report = plane.store.gather(node_ids)
 """
 from __future__ import annotations
@@ -18,9 +18,10 @@ from typing import Any, Callable, Mapping
 
 from .constant_buffer import ConstantBuffer
 from .feature_store import TieredFeatureStore
+from .software_cache import WindowBufferedCache
 from .storage_sim import StorageTimeline
-from .tiers import (ConstantBufferTier, DeviceStoreTier, KVSlotTier,
-                    StorageTier, Tier)
+from .tiers import (ConstantBufferTier, DeviceCacheTier, DeviceStoreTier,
+                    KVSlotTier, StorageTier, Tier)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +34,7 @@ class TierSpec:
 
 
 def tier(kind: str, **params) -> TierSpec:
-    """Sugar: `tier("device_store", window_depth=0)`."""
+    """Sugar: `tier("window_cache", window_depth=0)`."""
     return TierSpec(kind, params)
 
 
@@ -76,6 +77,17 @@ def register_tier_kind(kind: str) -> Callable[[TierFactory], TierFactory]:
         _TIER_KINDS[kind] = fn
         return fn
     return deco
+
+
+@register_tier_kind("window_cache")
+def _make_window_cache(ctx: BuildContext, num_lines=None, ways=None,
+                       window_depth=None, evict="random") -> Tier:
+    num_lines = ctx.cache_lines if num_lines is None else num_lines
+    ways = ctx.cache_ways if ways is None else ways
+    window_depth = ctx.window_depth if window_depth is None else window_depth
+    return DeviceCacheTier(WindowBufferedCache(
+        num_lines, ways, window_depth=window_depth, seed=ctx.seed,
+        evict=evict), ctx.features, device=ctx.device)
 
 
 @register_tier_kind("constant_buffer")
@@ -127,11 +139,6 @@ _PRESETS: dict[str, "DataPlaneSpec"] = {}
 #: The reference's other presets, by the ROADMAP.md Queue 1 item that
 #: ports them.
 _UNPORTED_PRESETS = {
-    **dict.fromkeys(("gids", "gids-async", "bam", "mmap", "pinned-host"),
-                    "host planes"),
-    **dict.fromkeys(("gids-merged", "gids-merged-async", "gids-topo",
-                     "gids-topo-merged"),
-                    "host planes (their window_cache tier)"),
     **dict.fromkeys(("gids-sharded", "gids-merged-sharded", "gids-hosts",
                      "gids-hosts-merged"),
                     "sharded, host, fault and adaptive planes"),
@@ -148,6 +155,11 @@ class DataPlaneSpec:
                "page_fault" — serial fault handling (the mmap baseline)
     lookahead: sampling runs ahead of training under accumulator control;
                False degenerates to synchronous depth-1 sampling.
+    prefetch:  batches the `PrefetchEngine` (core/prefetch.py) stages ahead
+               of consumption; 0 = synchronous execute-on-demand.  A
+               prefetching plane prices *exposed* prep time: the part of
+               the modelled prep that the previous batch's compute did not
+               hide.
     merge_execute: execute whole merged windows instead of single batches
                (`GIDSDataLoader.execute_window`): the window's requests are
                deduplicated, the tier stack folds once over the unique set,
@@ -164,6 +176,7 @@ class DataPlaneSpec:
     tiers: tuple[TierSpec, ...]
     pricing: str = "overlapped"
     lookahead: bool = True
+    prefetch: int = 0
     merge_execute: bool = False
     topology: bool = False
     description: str = ""
@@ -205,7 +218,8 @@ class DataPlaneSpec:
                                 f"valid knobs: {sorted(valid)}")
             setattr(ctx, k, v)
         return DataPlane(spec=self,
-                         store=TieredFeatureStore(self.build_stack(ctx)))
+                         store=TieredFeatureStore(self.build_stack(ctx),
+                                                  device=ctx.device))
 
     @staticmethod
     def preset(name: str, **overrides) -> "DataPlaneSpec":
@@ -259,6 +273,16 @@ class DataPlane:
         return self.spec.lookahead
 
     @property
+    def min_lookahead(self) -> int:
+        """Lookahead floor: a windowed tier needs its window kept full."""
+        wt = self.store.windowed_tier
+        return max(1, wt.window_depth if wt is not None else 1)
+
+    @property
+    def prefetch_depth(self) -> int:
+        return self.spec.prefetch
+
+    @property
     def merge_execute(self) -> bool:
         return self.spec.merge_execute
 
@@ -266,20 +290,98 @@ class DataPlane:
     def topology(self) -> bool:
         return self.spec.topology
 
-    @property
-    def min_lookahead(self) -> int:
-        """Lookahead floor: a windowed tier needs its window kept full."""
-        wt = self.store.windowed_tier
-        return max(1, wt.window_depth if wt is not None else 1)
-
     def price(self, timeline: StorageTimeline, report,
               outstanding: int) -> float:
         return timeline.price_batch(report, outstanding=outstanding,
                                     policy=self.spec.pricing)
 
+    def exposed_prep(self, timeline: StorageTimeline, prep_s: float,
+                     compute_s: float) -> float:
+        """Critical-path prep time the consumer waits for.  Only a
+        prefetching plane overlaps prep with the previous batch's compute;
+        a synchronous plane exposes the full modelled prep."""
+        if self.prefetch_depth > 0:
+            return timeline.price_batch_overlapped(prep_s, compute_s)
+        return prep_s
+
     def reset(self) -> None:
         self.store.reset()
 
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids",
+    tiers=(tier("window_cache"), tier("constant_buffer"), tier("storage")),
+    pricing="overlapped", lookahead=True,
+    description="Paper §3: window-buffered cache + constant pinned-host "
+                "buffer + GPU-initiated direct storage, accumulator-merged; "
+                "the cache's metadata on the host, its rows on the GPU."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="bam",
+    tiers=(tier("window_cache", window_depth=0), tier("storage")),
+    pricing="overlapped", lookahead=True,
+    description="BaM baseline: random-eviction GPU cache over direct "
+                "storage; no window buffering, no host buffer."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="mmap",
+    tiers=(tier("storage"),),
+    pricing="page_fault", lookahead=False,
+    description="DGL-mmap baseline: synchronous sampling, page-fault-priced "
+                "storage, no redirection tiers."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-async",
+    tiers=(tier("window_cache"), tier("constant_buffer"), tier("storage")),
+    pricing="overlapped", lookahead=True, prefetch=2,
+    description="GIDS with the two-stage prefetch engine: batch k+1's "
+                "gather/staging executes while batch k trains, so only "
+                "prep time in excess of the compute time is exposed "
+                "(§3.2 decoupling, Fig. 13 overlap)."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-merged",
+    tiers=(tier("window_cache"), tier("constant_buffer"), tier("storage")),
+    pricing="overlapped", lookahead=True, merge_execute=True,
+    description="GIDS with the accumulator's merge executed: the staged "
+                "lookahead window is deduplicated across batches, each "
+                "unique row gathered once, 4 KB-line-sharing storage rows "
+                "coalesced into single IOs, and the window priced as one "
+                "burst amortized per batch (§3.2)."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-merged-async",
+    tiers=(tier("window_cache"), tier("constant_buffer"), tier("storage")),
+    pricing="overlapped", lookahead=True, prefetch=2, merge_execute=True,
+    description="Merged-window execution combined with the prefetch "
+                "engine: whole deduplicated windows are staged ahead of "
+                "consumption and each batch's amortized burst share is "
+                "discounted by the compute it overlapped."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-topo",
+    tiers=(tier("window_cache"), tier("constant_buffer"), tier("storage")),
+    pricing="overlapped", lookahead=True, topology=True,
+    description="GIDS with the topology plane: sampling reads a tiered "
+                "adjacency store (GPU hot pages + pinned host + storage-"
+                "backed CSR pages, degree-aware admission) and is priced: "
+                "exposed prep covers sampling and gather (Fig. 7)."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-topo-merged",
+    tiers=(tier("window_cache"), tier("constant_buffer"), tier("storage")),
+    pricing="overlapped", lookahead=True, merge_execute=True, topology=True,
+    description="Topology-tiered sampling composed with merged-window "
+                "execution: each batch's priced sampling time rides on top "
+                "of its amortized share of the window's coalesced feature "
+                "burst."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="pinned-host",
+    tiers=(tier("constant_buffer"), tier("storage")),
+    pricing="overlapped", lookahead=True,
+    description="PyTorch-Direct-style zero-copy plane: pinned-host hot set "
+                "over direct storage, no device cache."))
 
 DataPlaneSpec.register(DataPlaneSpec(
     name="gids-device",

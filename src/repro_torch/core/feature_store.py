@@ -1,14 +1,16 @@
 """Tiered feature store, the port's subset of `repro.core.feature_store`:
 an ordered tier stack folded into one `GatherPlan` per batch.
 
-`gather()` returns the batch's feature rows and a `GatherReport` whose
-per-tier counts feed the storage-timeline pricing.  With a device-store
-tier on top, the rows are that tier's device tensor and never pass through
-the host.  `gather_merged()` folds the stack once over a merged window's
-unique set; its rows come from the device store's per-batch expansions
-(`device_store.device_gather_merged`), so a merged plane needs a device
-store on top (the numpy cache tiers wait for the host planes, ROADMAP.md
-Queue 1).  Sharded reports wait for the sharded planes.
+`gather()` returns the batch's feature rows as a tensor on the loader's
+device, and a `GatherReport` whose per-tier counts feed the storage-
+timeline pricing.  With a device tier on top (the host planes' window
+cache or the device store), the rows are the device gather that tier made
+during its probe.  Otherwise (`pinned-host`, `mmap`, a stack with the
+constant buffer first) they are `features[node_ids]` staged through a
+pinned buffer and copied to the device.  `gather_merged()` folds the stack
+once over a merged window's unique set; its per-batch rows are the device
+tier's expansions, or else the staged unique rows expanded per batch on
+the device.  Sharded reports wait for the sharded planes.
 """
 from __future__ import annotations
 
@@ -18,11 +20,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from .accumulator import MergedWindow
 from .constant_buffer import ConstantBuffer
+from .software_cache import WindowBufferedCache
 from .storage_sim import IO_BYTES, coalesce_lines
-from .tiers import (LATENCY_CLASSES, ConstantBufferTier, GatherPlan, Tier,
-                    build_plan, build_plan_merged)
+from .tiers import (LATENCY_CLASSES, ConstantBufferTier, GatherPlan,
+                    HostStager, Tier, build_plan, build_plan_merged)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +105,11 @@ class CoalescedReport(GatherReport):
 
 class TieredFeatureStore:
     """An ordered tier stack folded into one gather plan per batch.  The
-    last tier must be a storage backstop exposing `.features`."""
+    last tier must be a storage backstop exposing `.features`; rows are
+    delivered on `device`."""
 
-    def __init__(self, tiers: Sequence[Tier]):
+    def __init__(self, tiers: Sequence[Tier],
+                 device: str | torch.device = "cuda"):
         tiers = tuple(tiers)
         if not tiers:
             raise ValueError("empty tier stack")
@@ -132,7 +138,20 @@ class TieredFeatureStore:
         self.features = backstop.features
         self.feature_dim = self.features.shape[1]
         self.itemsize = self.features.dtype.itemsize
+        self.device = resolve_device(device)
+        self._stager = HostStager(
+            torch.from_numpy(np.ascontiguousarray(self.features)),
+            self.device)
         self.last_plan: GatherPlan | None = None
+
+    @property
+    def cache(self) -> WindowBufferedCache | None:
+        """The numpy window cache of the first tier that has one."""
+        for t in self.tiers:
+            c = getattr(t, "cache", None)
+            if isinstance(c, WindowBufferedCache):
+                return c
+        return None
 
     @property
     def cbuf(self) -> ConstantBuffer | None:
@@ -152,15 +171,19 @@ class TieredFeatureStore:
     def plan(self, node_ids: np.ndarray) -> GatherPlan:
         return build_plan(self.tiers, node_ids)
 
+    def _host_rows(self, node_ids: np.ndarray) -> torch.Tensor:
+        """features[node_ids] staged on the host and copied to the device."""
+        return self._stager.to_device(self._stager.stage(node_ids))
+
     def gather(self, node_ids: np.ndarray
-               ) -> tuple[torch.Tensor | np.ndarray, GatherReport]:
+               ) -> tuple[torch.Tensor, GatherReport]:
         """Fetch feature rows for (deduplicated) node_ids through the tiers.
-        A device-store tier on top already gathered them on the device
-        during its probe; otherwise they come from the backstop."""
+        A device tier on top already gathered them on the device during its
+        probe; otherwise they come from the backstop through the host."""
         plan = self.plan(node_ids)
         rows = getattr(plan.tiers[0], "last_rows", None)
         if rows is None or len(rows) != len(node_ids):
-            rows = np.asarray(self.features[node_ids])
+            rows = self._host_rows(node_ids)
         report = GatherReport.from_plan(
             plan, bytes_per_row=self.feature_dim * self.itemsize)
         self.last_plan = plan
@@ -170,25 +193,26 @@ class TieredFeatureStore:
                       ) -> tuple[list, list[CoalescedReport],
                                  CoalescedReport]:
         """Gather a whole merged window through ONE tier fold over its
-        unique request set.  The device store on top stages each unique row
-        once and expands it to every batch on the device; storage-bound
-        unique rows sharing a 4 KB line coalesce into single IOs.
+        unique request set.  Each unique row is staged once: a device tier
+        on top expands its rows to every batch on the device; otherwise the
+        unique rows are copied to the device and expanded there per batch.
+        Storage-bound unique rows sharing a 4 KB line coalesce into single
+        IOs.
 
         Returns `(rows_list, reports, window_report)`: per-batch device
         tensors of rows, per-batch `CoalescedReport`s (batch-local tier
         split + window telemetry), and the window-level report over the
         unique set that `StorageTimeline.price_merged_burst` prices."""
-        top = self.tiers[0]
-        if not hasattr(top, "probe_merged"):
-            raise NotImplementedError(
-                f"merged window over top tier {top.name!r}: the port "
-                "executes merged windows through a device store on top "
-                "(ROADMAP.md Queue 1: host planes)")
         unique = merged.unique_nodes
         inverses = [merged.batch_inverse(i) for i in range(merged.n_batches)]
         plan = build_plan_merged(self.tiers, unique,
                                  merged.batch_multiplicity(), inverses)
-        rows_list = top.last_window_rows
+        rows_list = getattr(self.tiers[0], "last_window_rows", None)
+        if rows_list is None:
+            rows_u = self._host_rows(unique)
+            rows_list = [rows_u.index_select(0, torch.from_numpy(
+                np.asarray(inv, np.int64)).to(self.device))
+                for inv in inverses]
         bytes_per_row = self.feature_dim * self.itemsize
         storage_mask = plan.storage_mask()
         window_stats = dict(
@@ -239,3 +263,8 @@ class TieredFeatureStore:
     def reset(self) -> None:
         for t in self.tiers:
             t.reset()
+
+    def device_rows(self, tier_index: int = 0) -> torch.Tensor:
+        """The resident row store of a device tier, as `tiered_gather`
+        consumes it with `GatherPlan.kernel_slots(tier_index)`."""
+        return self.tiers[tier_index].device_rows()

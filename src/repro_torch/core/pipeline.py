@@ -1,27 +1,33 @@
 """GIDSDataLoader, the port's subset of `repro.core.pipeline`: the
-two-stage pipeline for the neighbor sampler on a synchronous plane.
+two-stage pipeline for the neighbor sampler.
 
   stage 1, `plan_next()` — sampling runs ahead under the accumulator's
     merge depth, future node lists are pushed into the windowed tier
-    (`admit()`), and the next batch's blocks are popped.
+    (`admit()`), the next batch's blocks are popped, and the sampler RNG
+    state before them is kept as the batch's resume snapshot.
   stage 2, `execute(plan)` — the tier stack folds over the batch's nodes,
     the feature rows are gathered, and the batch is priced from its tier
     split.
 
+`next_batch()` composes the stages.  On a prefetching plane (`prefetch >
+0`, e.g. `gids-async`) a `PrefetchEngine` has already staged the next
+batches, and `next_batch(compute_s=...)` prices the batch's exposed prep
+against the model compute it overlapped (`max(0, prep - compute)`); every
+other `Batch` field equals the synchronous plane's bit for bit.
+
 On a merged plane (`DataPlaneSpec.merge_execute`) stage 2 runs over a whole
 window of plans (`plan_window()` / `execute_window()`): the window's
 request lists are deduplicated into a `MergedWindow`, the tier stack folds
-once over the unique set, the device store stages each unique row once
-and expands it per batch on the device, and the window is priced as one
-line-coalesced burst amortized across its batches.  On a topology plane
+once over the unique set, each unique row is staged once and expanded per
+batch on the device, and the window is priced as one line-coalesced burst
+amortized across its batches.  On a topology plane
 (`DataPlaneSpec.topology`) sampling runs against a `TieredTopologyStore`
 and each batch's priced sampling time rides on its `prep_time_s`.
 
-On `gids-device` the features of a `Batch` are a tensor on the loader's
-device that never passes through the host; reports and priced floats stay
-host-side Python and numpy, bit-identical to the reference.  Prefetch,
-sharding, hosts, faults, feedback, tracing and checkpoint state wait for
-later slices (ROADMAP.md Queue 1).
+The features of a `Batch` are a tensor on the loader's device; reports and
+priced floats stay host-side Python and numpy, bit-identical to the
+reference.  Sharding, hosts, faults, feedback, tracing and checkpoint
+state wait for later slices (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from repro_torch.sampling.tiered import tiered_sample_blocks
 from .accumulator import AccumulatorConfig, DynamicAccessAccumulator
 from .dataplane import DataPlane, DataPlaneSpec
 from .feature_store import GatherReport
+from .prefetch import PrefetchEngine
 from .storage_sim import INTEL_OPTANE, SSDSpec, StorageTimeline
 from .topology import TieredTopologyStore
 
@@ -49,7 +56,8 @@ class LoaderConfig:
     batch_size: int = 4096
     fanouts: Sequence[int] = (10, 5, 5)       # 3 sampling layers (paper §4.1)
     sampler: str = "neighbor"
-    data_plane: DataPlaneSpec | str = "gids-device"
+    data_plane: DataPlaneSpec | str | None = None  # preset name or spec;
+                                                   # None resolves to "gids"
     window_depth: int = 8                      # paper default
     cache_lines: int = 1 << 15
     cache_ways: int = 8
@@ -70,20 +78,25 @@ class LoaderConfig:
             raise NotImplementedError(
                 f"sampler {self.sampler!r} is not ported yet (ROADMAP.md "
                 f"Queue 1: LADIES); ported samplers: {SAMPLERS}")
+        if self.data_plane is None:
+            self.data_plane = "gids"
 
 
 @dataclasses.dataclass
 class BatchPlan:
-    """Stage-1 output: the blocks to gather and the merge depth."""
+    """Stage-1 output: the blocks to gather, the merge depth, and the
+    resume point: `snapshot` is the sampler state before this batch was
+    sampled."""
 
     blocks: SampledBlocks
     merge_depth: int
+    snapshot: dict
 
 
 @dataclasses.dataclass
 class Batch:
     blocks: SampledBlocks
-    features: torch.Tensor | np.ndarray  # rows for blocks.all_nodes
+    features: torch.Tensor        # rows for blocks.all_nodes, on the device
     report: GatherReport
     prep_time_s: float            # modelled data-preparation time; on a
                                   # topology plane it includes sampling
@@ -128,11 +141,14 @@ class GIDSDataLoader:
                 gpu_fraction=cfg.topo_gpu_fraction,
                 host_fraction=cfg.topo_host_fraction,
                 ssd=ssd, n_ssd=cfg.n_ssd, seed=cfg.seed, device=device)
-        self._lookahead: deque[SampledBlocks] = deque()
+        self._lookahead: deque[tuple[dict, SampledBlocks]] = deque()
         self._win_idx = 0   # lookahead entries already pushed to the window
-        # a merged plane stages a whole executed window here
-        self._merged_ready: deque[Batch] = deque()
+        # a merged plane stages a whole executed window here, each batch
+        # with its resume snapshot
+        self._merged_ready: deque[tuple[dict, Batch]] = deque()
         self._requests_per_iter = 0
+        self.prefetch = (PrefetchEngine(self, self.plane.prefetch_depth)
+                         if self.plane.prefetch_depth > 0 else None)
 
     def _sample_one(self) -> SampledBlocks:
         cfg = self.config
@@ -160,7 +176,10 @@ class GIDSDataLoader:
         if self.plane.merge_execute:
             sample_ahead = depth + self.plane.min_lookahead
         while len(self._lookahead) < sample_ahead:
-            self._lookahead.append(self._sample_one())
+            # the sampler state before the batch: its resume point
+            snap = {"rng": self.rng.bit_generator.state,
+                    "requests_per_iter": self._requests_per_iter}
+            self._lookahead.append((snap, self._sample_one()))
         self._sync_window()
         return depth
 
@@ -172,16 +191,17 @@ class GIDSDataLoader:
             return
         while (len(wt.window) < wt.window_depth
                and self._win_idx < len(self._lookahead)):
-            self.store.push_window(self._lookahead[self._win_idx].all_nodes)
+            self.store.push_window(
+                self._lookahead[self._win_idx][1].all_nodes)
             self._win_idx += 1
 
     def plan_next(self) -> BatchPlan:
         """Stage 1: sampling + admit-side staging."""
         depth = self._refill_lookahead()
-        blocks = self._lookahead.popleft()
+        snap, blocks = self._lookahead.popleft()
         self._win_idx = max(0, self._win_idx - 1)
         self._requests_per_iter = blocks.num_requests
-        return BatchPlan(blocks=blocks, merge_depth=depth)
+        return BatchPlan(blocks=blocks, merge_depth=depth, snapshot=snap)
 
     def execute(self, plan: BatchPlan) -> Batch:
         """Stage 2: data movement + pricing."""
@@ -236,10 +256,18 @@ class GIDSDataLoader:
         while True:
             yield self.next_batch()
 
-    def next_batch(self) -> Batch:
+    def next_batch(self, compute_s: float = 0.0) -> Batch:
+        """Deliver the next batch.  `compute_s` is the model-compute time
+        of the iteration this batch's preparation overlapped with; a
+        prefetching plane discounts the exposed prep by it, a synchronous
+        plane exposes the full prep and ignores it."""
+        if self.prefetch is not None:
+            return self.prefetch.next(compute_s)
         if self.plane.merge_execute:
             if not self._merged_ready:
-                self._merged_ready.extend(
-                    self.execute_window(self.plan_window()))
-            return self._merged_ready.popleft()
+                plans = self.plan_window()
+                for p, b in zip(plans, self.execute_window(plans),
+                                strict=True):
+                    self._merged_ready.append((p.snapshot, b))
+            return self._merged_ready.popleft()[1]
         return self.execute(self.plan_next())

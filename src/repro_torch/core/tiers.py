@@ -1,7 +1,11 @@
 """Pluggable data-plane tiers, the port's subset of `repro.core.tiers`: the
-`Tier` protocol, the device-store, constant-buffer and storage tiers, and
-the gather plan that folds a tier stack over one batch.
+`Tier` protocol, the device, constant-buffer and storage tiers, and the
+gather plan that folds a tier stack over one batch.
 
+  DeviceCacheTier    — the host planes' cache: the numpy window-buffered
+                       cache (`software_cache`) decides hits, fills and
+                       evictions, and a row store on the loader's device
+                       serves the hits through `tiered_gather`
   DeviceStoreTier    — device cache metadata + device row store + the
                        `tiered_gather` kernel, via `device_store`; a merged
                        window goes through `tiered_gather_unique`
@@ -9,8 +13,7 @@ the gather plan that folds a tier stack over one batch.
   StorageTier        — the storage backstop (always hits)
   KVSlotTier         — the serve engine's KV-cache slot pool
 
-The numpy-cache, tenant and sharded tiers wait for their slices
-(ROADMAP.md Queue 1).
+The tenant and sharded tiers wait for their slices (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -23,8 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import ops
 from . import cache_device, device_store
 from .constant_buffer import ConstantBuffer
+from .software_cache import WindowBufferedCache
+from .storage_sim import IO_BYTES
 
 #: Valid latency classes, fastest first.  Pricing keys off the class.
 LATENCY_CLASSES = ("hbm", "host", "storage")
@@ -70,6 +76,233 @@ class _TierBase:
         pass
 
 
+class HostStager:
+    """Rows of a host feature table staged for one copy to `device`.
+
+    On CUDA the rows land in one pinned buffer that every call reuses, once
+    the previous copy out of it has completed, and `to_device` starts a
+    non-blocking copy that yields a new device tensor.  On the CPU each
+    call returns a new tensor and `to_device` returns it as it is.  Either
+    way a caller owns what `to_device` returns: a later staging never
+    changes it."""
+
+    def __init__(self, features: torch.Tensor, device: torch.device):
+        self.features = features
+        self.device = device
+        self._pinned: torch.Tensor | None = None
+        self._copied: torch.cuda.Event | None = None
+
+    def stage(self, node_ids: np.ndarray,
+              needed: np.ndarray | None = None) -> torch.Tensor:
+        """features[node_ids] on the host.  With a boolean mask `needed`,
+        only those rows are written; the others hold stale bytes (zeros on
+        the CPU)."""
+        idx = torch.from_numpy(np.asarray(node_ids, np.int64))
+        shape = (len(idx), self.features.shape[1])
+        if self.device.type == "cpu":
+            if needed is None:
+                return self.features.index_select(0, idx)
+            buf = torch.zeros(shape, dtype=self.features.dtype)
+        else:
+            if self._pinned is None or self._pinned.shape[0] < shape[0]:
+                self._pinned = torch.empty(shape, dtype=self.features.dtype,
+                                           pin_memory=True)
+            elif self._copied is not None:
+                self._copied.synchronize()
+            buf = self._pinned[:shape[0]]
+            if needed is None:
+                return torch.index_select(self.features, 0, idx, out=buf)
+        pos = torch.from_numpy(np.flatnonzero(needed))
+        return buf.index_copy_(0, pos, self.features.index_select(0, idx[pos]))
+
+    def to_device(self, host: torch.Tensor) -> torch.Tensor:
+        if self.device.type == "cpu":
+            return host
+        out = host.to(self.device, non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record()
+        return out
+
+
+def _stage_timer(device: torch.device):
+    """(events, mark): `mark(stage)` records a CUDA event named `stage` on
+    the current stream; on the CPU it records nothing."""
+    events: dict[str, torch.cuda.Event] = {}
+
+    def mark(stage: str) -> None:
+        if device.type == "cuda":
+            events[stage] = torch.cuda.Event(enable_timing=True)
+            events[stage].record()
+    return events, mark
+
+
+def _event_split(events: dict, order: list[str]) -> dict[str, float]:
+    """ms between consecutive events of `order`, once the last completed."""
+    events[order[-1]].synchronize()
+    return {b: events[a].elapsed_time(events[b])
+            for a, b in zip(order, order[1:])}
+
+
+class DeviceCacheTier(_TierBase):
+    """Device tier of the host planes (§3.4): the numpy window-buffered
+    cache keeps the metadata on the host, and a row store `rows`
+    (num_lines, D) on the loader's device, zeros at first, holds the row of
+    every resident line at index `set * ways + way`, the index `lookup`
+    returns.
+
+    Each probe runs the numpy access, then:
+      - `slots` = the post-probe line of each hit, -1 elsewhere (a miss, a
+        bypass, or a hit whose line a later fill of its set took);
+      - the host stages `features[node_ids[i]]` for the slot -1 rows only
+        and copies the buffer to the device;
+      - `tiered_gather(slots, rows, staged)` serves every row into
+        `last_rows` (a merged probe: one `tiered_gather_unique` per batch
+        into `last_window_rows`);
+      - `store_fill` writes each line whose tag changed during the probe
+        from the staged row of the request whose node is its new tag.
+    So after every probe each resident line l holds
+    `features[tags.flat[l]]` bit for bit.  Node ids must be unique within
+    a probe, as a batch's or a window's are: the new tag of a line is then
+    a miss of the probe, whose staged row is real.
+
+    On CUDA, `last_split_ms` holds the last probe's time per stage (the
+    numpy probe with its slots and fillers, and host staging, on the host
+    clock; the rest between CUDA events) and `last_counts` its rows, hits,
+    staged rows, filled lines and H2D bytes.
+    """
+
+    latency_class = "hbm"
+
+    def __init__(self, cache: WindowBufferedCache, features: np.ndarray,
+                 name: str = "hbm-cache", line_bytes: int = IO_BYTES,
+                 device: str | torch.device = "cuda"):
+        self.cache = cache
+        self.name = name
+        self.line_bytes = line_bytes
+        self.device = resolve_device(device)
+        host = torch.from_numpy(np.ascontiguousarray(features))
+        self._stager = HostStager(host, self.device)
+        self.rows = torch.zeros((cache.num_sets * cache.ways, host.shape[1]),
+                                dtype=host.dtype, device=self.device)
+        self.last_rows: torch.Tensor | None = None
+        self.last_window_rows: list[torch.Tensor] | None = None
+        self.last_split_ms: dict[str, float] = {}
+        self.last_counts: dict[str, int] = {}
+
+    @property
+    def capacity_bytes(self) -> int:
+        return self.cache.num_sets * self.cache.ways * self.line_bytes
+
+    @property
+    def window_depth(self) -> int:
+        return self.cache.window_depth
+
+    @property
+    def window(self) -> deque:
+        return self.cache.window
+
+    def probe(self, node_ids: np.ndarray) -> np.ndarray:
+        return self._probe_rows(np.asarray(node_ids))
+
+    def probe_merged(self, node_ids: np.ndarray, multiplicity: np.ndarray,
+                     inverses: list[np.ndarray] | None = None) -> np.ndarray:
+        """One deduplicated probe for a whole merged window: each node
+        consumes its full reuse multiplicity at once (the caller has
+        already retired the consumed window entries and pushed the next
+        window's).  `inverses` holds one index array per batch into
+        `node_ids`; each batch's rows land in `last_window_rows`.  Without
+        them (the tier below the top of a merged fold) the rows of
+        `node_ids` land in `last_rows`."""
+        return self._probe_rows(np.asarray(node_ids), multiplicity, inverses)
+
+    def _fillers(self, before: np.ndarray, node_ids: np.ndarray,
+                 slots: np.ndarray) -> np.ndarray:
+        """(L,) int32: for each line whose tag changed since `before`, the
+        index of the request whose node is the new tag; -1 elsewhere."""
+        after = self.cache.tags.reshape(-1)
+        changed = np.flatnonzero(after != before)
+        filler = np.full(len(after), -1, np.int32)
+        if len(changed):
+            order = np.argsort(node_ids, kind="stable")
+            at = np.minimum(np.searchsorted(node_ids[order], after[changed]),
+                            len(order) - 1)
+            idx = order[at]
+            if (node_ids[idx] != after[changed]).any() \
+                    or (slots[idx] >= 0).any():
+                raise ValueError(
+                    f"{self.name}: a line was filled by a request that is "
+                    "not a staged miss of this probe; node ids must be "
+                    "unique within a probe")
+            filler[changed] = idx
+        return filler
+
+    def _probe_rows(self, node_ids: np.ndarray,
+                    multiplicity: np.ndarray | None = None,
+                    inverses: list[np.ndarray] | None = None) -> np.ndarray:
+        t0 = time.perf_counter()
+        before = self.cache.tags.reshape(-1).copy()
+        hits = (self.cache.access(node_ids) if multiplicity is None
+                else self.cache.access_merged(node_ids, multiplicity))
+        slots = np.full(len(node_ids), -1, np.int32)
+        slots[hits] = self.lookup_slots(node_ids[hits])
+        filler = self._fillers(before, node_ids, slots)
+        staged_mask = slots < 0
+        t1 = time.perf_counter()
+        host = self._stager.stage(node_ids, needed=staged_mask)
+        t2 = time.perf_counter()
+        events, mark = _stage_timer(self.device)
+        mark("start")
+        staged = self._stager.to_device(host)
+        slots_d = torch.from_numpy(slots).to(self.device, non_blocking=True)
+        filled = bool((filler >= 0).any())
+        if filled:
+            filler_d = torch.from_numpy(filler).to(self.device,
+                                                   non_blocking=True)
+        if inverses is not None:
+            inv_d = torch.from_numpy(np.concatenate(inverses)).to(
+                self.device, non_blocking=True).to(torch.int32)
+        mark("h2d")
+        if inverses is None:
+            self.last_rows = ops.tiered_gather(slots_d, self.rows, staged)
+            self.last_window_rows = None
+        else:
+            self.last_rows = None
+            self.last_window_rows = [
+                ops.tiered_gather_unique(slots_d, self.rows, staged, inv)
+                for inv in torch.split(inv_d, [len(i) for i in inverses])]
+        mark("gather")
+        if filled:                  # after the gather: it reads no new line
+            ops.store_fill(self.rows, filler_d, staged)
+        mark("fill")
+        row_bytes = host.shape[1] * host.element_size()
+        self.last_counts = {"rows": len(node_ids), "hits": int(hits.sum()),
+                            "staged_rows": int(staged_mask.sum()),
+                            "filled_lines": int((filler >= 0).sum()),
+                            "h2d_bytes": host.shape[0] * row_bytes,
+                            "needed_bytes": int(staged_mask.sum()) * row_bytes}
+        if events:
+            self.last_split_ms = {"probe": (t1 - t0) * 1e3,
+                                  "stage_host": (t2 - t1) * 1e3} \
+                | _event_split(events, ["start", "h2d", "gather", "fill"])
+        return hits
+
+    def admit(self, node_ids: np.ndarray) -> None:
+        self.cache.push_window(node_ids)
+
+    def lookup_slots(self, node_ids: np.ndarray) -> np.ndarray:
+        """Resident cache line per node (post-probe), -1 if absent."""
+        return self.cache.lookup(node_ids)
+
+    def device_rows(self) -> torch.Tensor:
+        """The resident row store on the loader's device."""
+        return self.rows
+
+    def reset(self) -> None:
+        self.cache.reset()
+        self.rows.zero_()
+        self.last_rows = self.last_window_rows = None
+
+
 class DeviceStoreTier(_TierBase):
     """Device tier: cache metadata, row store and gather on the loader's
     device, via `device_store.device_gather`.
@@ -90,9 +323,10 @@ class DeviceStoreTier(_TierBase):
                  window_depth: int = 0, name: str = "device-store",
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        self._host_features = torch.from_numpy(np.ascontiguousarray(features))
-        self._init_args = (num_lines, features.shape[1], ways,
-                           self._host_features.dtype, self.device)
+        host = torch.from_numpy(np.ascontiguousarray(features))
+        self._stager = HostStager(host, self.device)
+        self._init_args = (num_lines, features.shape[1], ways, host.dtype,
+                           self.device)
         self.store = device_store.init_store(*self._init_args)
         self.window_depth = window_depth
         self.window: deque[np.ndarray] = deque()
@@ -100,8 +334,6 @@ class DeviceStoreTier(_TierBase):
         self.last_rows: torch.Tensor | None = None
         self.last_window_rows: list[torch.Tensor] | None = None
         self.last_split_ms: dict[str, float] = {}
-        self._pinned: torch.Tensor | None = None
-        self._staged_copy: torch.cuda.Event | None = None
 
     @property
     def capacity_bytes(self) -> int:
@@ -120,23 +352,6 @@ class DeviceStoreTier(_TierBase):
         hi = np.searchsorted(cat, ids, side="right")
         return (hi - lo).astype(np.int32)
 
-    def _stage_host(self, node_ids: np.ndarray) -> torch.Tensor:
-        """features[node_ids] on the host.  On CUDA the rows land in a
-        pinned buffer, reused once the previous copy out of it completed."""
-        idx = torch.from_numpy(np.asarray(node_ids, np.int64))
-        if self.device.type == "cpu":
-            return self._host_features.index_select(0, idx)
-        n = len(idx)
-        if self._pinned is None or self._pinned.shape[0] < n:
-            self._pinned = torch.empty(
-                (n, self._host_features.shape[1]),
-                dtype=self._host_features.dtype, pin_memory=True)
-        elif self._staged_copy is not None:
-            self._staged_copy.synchronize()
-        buf = self._pinned[:n]
-        torch.index_select(self._host_features, 0, idx, out=buf)
-        return buf
-
     def probe(self, node_ids: np.ndarray) -> np.ndarray:
         if self.window_depth > 0 and self.window:
             self.window.popleft()
@@ -149,7 +364,8 @@ class DeviceStoreTier(_TierBase):
         entries).  As in the reference, the metadata takes one reservation
         per hit, not the full multiplicity.  `inverses` holds one index
         array per batch into `node_ids`; each batch's rows land in
-        `last_window_rows`."""
+        `last_window_rows`.  Without them (the tier below the top of a
+        merged fold) the rows of `node_ids` land in `last_rows`."""
         del multiplicity
         return self._probe_rows(node_ids, inverses)
 
@@ -157,21 +373,12 @@ class DeviceStoreTier(_TierBase):
                     inverses: list[np.ndarray] | None = None) -> np.ndarray:
         ids = np.asarray(node_ids).astype(np.int32)
         fc = self._future_counts(node_ids)
-        events: dict[str, torch.cuda.Event] = {}
-
-        def mark(stage: str) -> None:
-            if self.device.type == "cuda":
-                events[stage] = torch.cuda.Event(enable_timing=True)
-                events[stage].record()
-
+        events, mark = _stage_timer(self.device)
         t0 = time.perf_counter()
-        host_rows = self._stage_host(node_ids)
+        host_rows = self._stager.stage(node_ids)
         t_stage = time.perf_counter() - t0
         mark("start")
-        staged = host_rows.to(self.device, non_blocking=True)
-        if self.device.type == "cuda":
-            self._staged_copy = torch.cuda.Event()
-            self._staged_copy.record()
+        staged = self._stager.to_device(host_rows)
         ids_d = torch.from_numpy(ids).to(self.device, non_blocking=True)
         fc_d = torch.from_numpy(fc).to(self.device, non_blocking=True)
         if inverses is None:
@@ -190,10 +397,8 @@ class DeviceStoreTier(_TierBase):
             self.last_rows, self.last_window_rows = None, rows_list
         hit_mask = hits.cpu().numpy()      # waits for the whole probe
         if events:
-            order = ["start", "h2d", "cache_access", "gather", "fill"]
-            self.last_split_ms = {"stage_host": t_stage * 1e3} | {
-                b: events[a].elapsed_time(events[b])
-                for a, b in zip(order, order[1:])}
+            self.last_split_ms = {"stage_host": t_stage * 1e3} | _event_split(
+                events, ["start", "h2d", "cache_access", "gather", "fill"])
         return hit_mask
 
     def admit(self, node_ids: np.ndarray) -> None:
@@ -215,6 +420,10 @@ class DeviceStoreTier(_TierBase):
         way = match.argmax(axis=1)                # first matching way
         return np.where(match.any(axis=1),
                         slots[sets, way], -1).astype(np.int32)
+
+    def device_rows(self) -> torch.Tensor:
+        """The resident row store on the loader's device."""
+        return self.store.rows
 
     def reset(self) -> None:
         self.store = device_store.init_store(*self._init_args)
@@ -382,11 +591,10 @@ def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray,
     tier must be a backstop (probe everything True).
 
     With `multiplicity` the fold is a merged-window one over a window's
-    UNIQUE request set: a tier with `probe_merged` (the device store) takes
-    the window in one pass, together with the per-batch `inverses` into
-    `node_ids` that expand its rows; other tiers see a plain probe.  Only
-    the top tier is offered the whole unique set, so a `probe_merged` tier
-    must be first."""
+    UNIQUE request set: a tier with `probe_merged` (a device tier) consumes
+    each node's full multiplicity in one pass; on top of the stack it also
+    takes the per-batch `inverses` into `node_ids` that expand its rows.
+    Other tiers see a plain probe."""
     node_ids = np.asarray(node_ids)
     n = len(node_ids)
     assignment = np.full(n, -1, np.int8)
@@ -396,12 +604,9 @@ def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray,
         if len(idx) == 0:
             break
         if multiplicity is not None and hasattr(tier, "probe_merged"):
-            if ti != 0:
-                raise NotImplementedError(
-                    f"merged window over tier {tier.name!r} at position "
-                    f"{ti}: the port's merged executor needs the device "
-                    "store on top (ROADMAP.md Queue 1: host planes)")
-            hits = tier.probe_merged(node_ids, multiplicity, inverses)
+            # only the top tier sees the whole unique set the inverses index
+            hits = tier.probe_merged(node_ids[idx], multiplicity[idx],
+                                     inverses if ti == 0 else None)
         else:
             hits = tier.probe(node_ids[idx])
         hits = np.asarray(hits, dtype=bool)

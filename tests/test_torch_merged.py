@@ -259,15 +259,33 @@ def test_merged_sgd_steps_match_reference():
 
 
 def test_merged_plane_needs_device_store_on_top():
-    spec = DataPlaneSpec.preset("gids-device", merge_execute=True).with_(
-        tiers=DataPlaneSpec.preset("gids-device").tiers[1:])
-    loader = GIDSDataLoader(rmat_graph(500, 8, 8, seed=1),
-                            np.zeros((500, 8), np.float32),
-                            LoaderConfig(batch_size=16, fanouts=(2,),
-                                         data_plane=spec, window_depth=0),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        loader.next_batch()
+    """A merged plane with the constant buffer on top and no device tier
+    (no longer refused): blocks, reports and priced prep bit-identical to
+    the reference, and each batch's rows, expanded on the device from the
+    staged unique rows, equal feats[all_nodes].  A merged plane still
+    needs overlapped pricing."""
+    tiers = DataPlaneSpec.preset("gids-merged").tiers[1:]
+    assert [t.kind for t in tiers] == ["constant_buffer", "storage"]
+    feats = _feats()
+    cfg = {**KW, "window_depth": 0}
+    ref = JLoader(jrmat(N, 8, DIM, seed=3), feats, JConfig(
+        data_plane=JSpec.preset("gids-merged").with_(
+            tiers=JSpec.preset("gids-merged").tiers[1:]), **cfg))
+    port = GIDSDataLoader(rmat_graph(N, 8, DIM, seed=3), feats, LoaderConfig(
+        data_plane=DataPlaneSpec.preset("gids-merged").with_(tiers=tiers),
+        **cfg), device="cpu")
+    for _ in range(12):
+        a, b = ref.next_batch(), port.next_batch()
+        np.testing.assert_array_equal(a.blocks.all_nodes, b.blocks.all_nodes)
+        ra, rb = _report_fields(a.report), _report_fields(b.report)
+        for name, value in rb.items():
+            assert ra[name] == value, name
+        assert (a.prep_time_s, a.merge_depth) == (b.prep_time_s,
+                                                  b.merge_depth)
+        np.testing.assert_array_equal(b.features.numpy(),
+                                      feats[b.blocks.all_nodes])
+    np.testing.assert_array_equal(ref.store.last_plan.assignment,
+                                  port.store.last_plan.assignment)
     with pytest.raises(ValueError, match="overlapped"):
         DataPlaneSpec.preset("gids-device", merge_execute=True,
                              pricing="page_fault")

@@ -111,14 +111,17 @@ def test_three_sgd_steps_match_reference():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
-    """Merged windows and the topology plane are ported on the device store
-    (`gids-device` with `merge_execute` / `topology`); the presets that
-    carry them on the numpy `window_cache` tier still raise."""
-    for name in ("gids", "gids-async", "gids-merged", "gids-merged-async",
-                 "gids-topo", "gids-topo-merged", "gids-sharded",
-                 "serve-gnn"):
+    """The host planes, merged windows and the topology plane are ported;
+    the sharded and GNN-serving presets and the LADIES sampler still
+    raise, naming their ROADMAP item."""
+    for name in ("gids-sharded", "serve-gnn"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             DataPlaneSpec.preset(name)
+    for name in ("gids", "gids-async", "bam", "mmap", "pinned-host",
+                 "gids-merged", "gids-merged-async", "gids-topo",
+                 "gids-topo-merged"):
+        assert DataPlaneSpec.preset(name).name == name
+    assert LoaderConfig().data_plane == "gids"
     spec = DataPlaneSpec.preset("gids-device", merge_execute=True,
                                 topology=True)
     assert spec.merge_execute and spec.topology
@@ -152,7 +155,8 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert "imported" in out.stdout
     for name in ("core.topology", "sampling.tiered", "core.accumulator",
-                 "kernels.tiered_gather", "core.device_store"):
+                 "kernels.tiered_gather", "core.device_store",
+                 "core.software_cache", "core.prefetch", "graph.datasets"):
         assert f"repro_torch.{name}\n" in out.stdout
     pattern = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)\b)",
                          re.M)
