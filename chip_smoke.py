@@ -75,6 +75,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    rows need, and the priced and exposed prep.  Then FEATURE_BATCHES
    batches each of `bam`, `mmap` and `pinned-host`, each checked bit for
    bit against the host features.
+4c. Resumable training and the other samplers, at phase 3's width.
+   RESUME: on `gids-async` (12 steps, checkpoint after 5, with prefetched
+   batches staged) and on phase 4's merged topology plane (16 steps,
+   checkpoint after 3, inside the first merged window), the steps run
+   straight; then a fresh model and loader train up to the checkpoint,
+   save `param_tree()` and `loader.state_dict()` through
+   `repro_torch.train.checkpoint`, and a third model from another seed
+   and a fresh loader restore them and train the rest.  Gates: the
+   restored parameters, and every resumed batch's seeds, nodes, features
+   and loss, equal the straight run's bit for bit; on the merged plane
+   every hop's words equal `graph.indices[pos]`, `frontier_read` is
+   launched once per hop, and the cache access, gather and fill are
+   launched after the restore.  Prints the save and restore host ms and
+   the bytes written.  A StepWatchdog(min_history=4) around every step
+   prints its stragglers.  LADIES: fig15's sampler shape (batch 256,
+   layer sizes 2048, 2048), LADIES["batches"] feature batches on `gids`
+   and on `gids-device`: features bit for bit, 256 + 2048 + 2048
+   requests, cache hits after the first batch; prints the sampling and
+   `next_batch` ms.  SAMPLER: `device_sample_blocks` on fig7's IGB tiny,
+   small and medium graphs (100k, 250k, 500k nodes), batch 512, fanouts
+   (10, 5), seeds from `default_rng(0)`, a CUDA generator seeded 0: every
+   call's shapes, dtype and neighbour-or-self-loop ids checked on the
+   host; the median of 20 device calls and of 5 host calls, and their
+   ratio; and the card's busy time for one call, measured with the
+   launches queued behind a device-side sleep (with the host's enqueue
+   time and the sleep's length beside it).
 5. LM serving at the full published width of qwen2-1.5b (28 layers,
    d_model 1536, 12 heads, GQA kv 2, hd 128, d_ff 8960, padded vocab
    153600, 1,546,270,208 parameters) with `attn_impl="flash"`, weights
@@ -1203,21 +1229,12 @@ MERGED_PLANE = "gids-device+merge_execute+topology"
 def merged_topology_path(torch, np):
     """Phase 4: MERGED_STEPS training steps on the merged-window, topology
     plane over the device store, through `loader.next_batch()`."""
-    from repro_torch.core import INTEL_OPTANE, GIDSDataLoader, LoaderConfig
-    from repro_torch.core.dataplane import DataPlaneSpec
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.models.gnn import hop_indices, sgd_step
 
     t0 = time.perf_counter()
     graph, labels_all, feats, cfg, gnn = workload(torch, np)
-    spec = DataPlaneSpec.preset("gids-device", merge_execute=True,
-                                topology=True)
-    loader = GIDSDataLoader(
-        graph, feats,
-        LoaderConfig(batch_size=FULL["batch"], fanouts=cfg.fanouts,
-                     data_plane=spec, cache_lines=FULL["cache_lines"],
-                     window_depth=8, cbuf_fraction=0.1),
-        ssd=INTEL_OPTANE, device=DEVICE)
+    loader = _host_loader(torch, graph, feats, cfg, _plane_spec(MERGED_PLANE))
     topo, tier = loader.topo, loader.store.tiers[0]
     host_feats = torch.from_numpy(feats).to(DEVICE)
     labels_dev = torch.from_numpy(labels_all).to(DEVICE)
@@ -1611,6 +1628,428 @@ def host_planes(torch, np) -> dict:
     return by_path
 
 
+#: phase 4c: resumable training on the host plane gids-async and on the
+#: merged topology plane, LADIES features on two planes, and the device
+#: sampler against the host one on fig7's graphs
+RESUME_ASYNC = "resume gids-async"
+RESUME_MERGED = "resume " + MERGED_PLANE
+RESUME = {RESUME_ASYNC: dict(plane="gids-async", steps=12, at=5),
+          RESUME_MERGED: dict(plane=MERGED_PLANE, steps=16, at=3)}
+LADIES = dict(batch=256, layer_sizes=(2048, 2048), batches=6,
+              planes=("gids", "gids-device"))
+SAMPLER = dict(datasets=("IGB_TINY", "IGB_SMALL", "IGB_MEDIUM"), batch=512,
+               fanouts=(10, 5), device_calls=20, host_calls=5)
+#: a device-side sleep long enough to cover the host's enqueue of one
+#: device_sample_blocks call (about 1 ms), so that CUDA events around the
+#: call time the card's own work
+ENQUEUE_SLEEP_CYCLES = 8_000_000
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Equal bit for bit (so -0.0 differs from 0.0, and NaN equals
+    itself), f32 tensors of one shape."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _plane_spec(plane):
+    from repro_torch.core.dataplane import DataPlaneSpec
+    if plane == MERGED_PLANE:
+        return DataPlaneSpec.preset("gids-device", merge_execute=True,
+                                    topology=True)
+    return plane
+
+
+def _checked_words(np, loader, graph, hops: dict) -> None:
+    """Every hop's adjacency words, as the sampler reads them through the
+    topology store, held against graph.indices; counts the hops and the
+    host time of the check (`gate_s`, which step times leave out)."""
+    read = loader.topo.frontier_gather
+
+    def checked(pos):
+        out = read(pos)
+        t = time.perf_counter()
+        check(np.array_equal(out, graph.indices[pos]),
+              f"frontier_gather differs from graph.indices on hop "
+              f"{hops['n']}")
+        hops["gate_s"] += time.perf_counter() - t
+        hops["n"] += 1
+        return out
+    loader.topo.frontier_gather = checked
+
+
+def _train(torch, np, loader, gnn, labels_dev, host_feats, steps: int,
+           what: str, hops: dict | None = None) -> list[dict]:
+    """`steps` SGD steps through `loader.next_batch(compute_s=last
+    measured step)`, each inside a StepWatchdog (stragglers printed, not
+    gated).  Returns each step's seeds, nodes, features and loss, and its
+    times without the gates: the step's own checks come after `wall_ms`
+    is read, and the hop checks of `_checked_words` (`hops`) are taken
+    out of `next_batch_ms` and `wall_ms`."""
+    from repro_torch.models.gnn import hop_indices, sgd_step
+    from repro_torch.train.fault_tolerance import StepWatchdog, WatchdogConfig
+    watchdog = StepWatchdog(WatchdogConfig(min_history=4))
+    out, last_step_s = [], 0.0
+    for step in range(steps):
+        watchdog.start_step(step)
+        gate_s = hops["gate_s"] if hops else 0.0
+        t_start = time.perf_counter()
+        batch = loader.next_batch(compute_s=last_step_s)
+        t_batch = time.perf_counter()
+        gate_s = (hops["gate_s"] if hops else 0.0) - gate_s
+        nodes = torch.from_numpy(batch.blocks.all_nodes).to(DEVICE)
+        hi = [torch.from_numpy(i).to(DEVICE)
+              for i in hop_indices(batch.blocks)]
+        y = labels_dev[torch.from_numpy(batch.blocks.seeds).to(DEVICE)]
+        ts = time.perf_counter()
+        loss = sgd_step(gnn, batch.features, hi, y, 0.05).item()
+        t_end = time.perf_counter()
+        if step > 0:               # step 0 pays the first cuBLAS calls
+            last_step_s = t_end - ts
+        if watchdog.end_step():
+            print(f"{what} step {step} STRAGGLER: step took "
+                  f"{watchdog.flagged[-1][1]*1e3:.1f} ms (median "
+                  f"{watchdog.median_step_s*1e3:.1f} ms)", flush=True)
+        check(batch.features.device.type == DEVICE
+              and torch.equal(batch.features, host_feats[nodes]),
+              f"{what} step {step}: features differ from "
+              "host_features[all_nodes]")
+        check(np.isfinite(loss), f"{what} step {step}: loss {loss}")
+        out.append({"seeds": batch.blocks.seeds,
+                    "all_nodes": batch.blocks.all_nodes,
+                    "features": batch.features, "loss": loss,
+                    "next_batch_ms": (t_batch - t_start - gate_s) * 1e3,
+                    "wall_ms": (t_end - t_start - gate_s) * 1e3})
+    return out
+
+
+def _median_ms(run: list[dict]) -> dict:
+    """Medians of a run's steps after the first (which pays first calls)."""
+    return {k: statistics.median(r[k] for r in run[1:])
+            for k in ("next_batch_ms", "wall_ms")} if len(run) > 1 else {}
+
+
+def resume_path(torch, np, work, host_feats, path: str) -> dict:
+    """Train RESUME[path]["steps"] steps straight; then, in the same
+    process, a fresh model and loader train `at` steps, save the
+    parameters and the loader's state through `train.checkpoint`, and a
+    third model (from another seed) and loader restore them and train the
+    remaining steps.  The resumed batches and losses must equal the
+    straight run's bit for bit."""
+    import tempfile
+
+    from repro_torch.kernels import _build
+    from repro_torch.models.gnn import GNN
+    from repro_torch.train import checkpoint as ckpt
+    graph, labels_all, feats, cfg, _ = work
+    plane, steps, at = (RESUME[path][k] for k in ("plane", "steps", "at"))
+    merged = plane == MERGED_PLANE
+    labels_dev = torch.from_numpy(labels_all).to(DEVICE)
+
+    def fresh(seed):
+        gnn = GNN(cfg, generator=torch.Generator().manual_seed(seed),
+                  device=DEVICE)
+        loader = _host_loader(torch, graph, feats, cfg, _plane_spec(plane))
+        if merged:
+            _checked_words(np, loader, graph, hops)
+        return gnn, loader
+
+    hops = {"n": 0, "gate_s": 0.0}
+    _build.reset_launches()
+    gnn, loader = fresh(0)
+    gates = hops if merged else None
+    straight = _train(torch, np, loader, gnn, labels_dev, host_feats, steps,
+                      f"{path} straight", gates)
+    del gnn, loader
+    gnn, loader = fresh(0)
+    before_ckpt = _train(torch, np, loader, gnn, labels_dev, host_feats, at,
+                         f"{path} before the checkpoint", gates)
+    if merged:
+        check(len(loader._merged_ready) > 0,
+              f"{path}: the checkpoint is not inside a merged window")
+    else:
+        check(loader.prefetch.oldest_snapshot() is not None,
+              f"{path}: no prefetched batch staged at the checkpoint")
+    saved = {g: {k: v.clone() for k, v in ps.items()}
+             for g, ps in gnn.param_tree().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = ckpt.save(tmp, at, gnn.param_tree(),
+                            {"loader": loader.state_dict()})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(f.stat().st_size for f in written.iterdir())
+        del gnn, loader
+        gnn, loader = fresh(1)
+        check(not all(_bits_equal(torch, p, saved[g][k])
+                      for g, ps in gnn.param_tree().items()
+                      for k, p in ps.items()),
+              f"{path}: the third model starts from the saved parameters")
+        t0 = time.perf_counter()
+        tree, extra = ckpt.restore(tmp, at, gnn.param_tree())
+        gnn.load_reference_params(tree)
+        loader.load_state_dict(extra["loader"])
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    for g, ps in gnn.param_tree().items():
+        for k, p in ps.items():
+            check(_bits_equal(torch, p, saved[g][k]),
+                  f"{path}: restored {g}.{k} differs from the saved one")
+    before = dict(_build.LAUNCHES)
+    hops_before = hops["n"]
+    resumed = _train(torch, np, loader, gnn, labels_dev, host_feats,
+                     steps - at, f"{path} resumed", gates)
+    launches = dict(_build.LAUNCHES)
+    resumed_launches = {k: launches[k] - before[k] for k in launches}
+    for i, got in enumerate(resumed):
+        want = straight[at + i]
+        step = at + i
+        check(np.array_equal(got["seeds"], want["seeds"])
+              and np.array_equal(got["all_nodes"], want["all_nodes"]),
+              f"{path} step {step}: resumed blocks differ from the "
+              "straight run's")
+        check(_bits_equal(torch, got["features"], want["features"]),
+              f"{path} step {step}: resumed features differ from the "
+              "straight run's")
+        check(got["loss"] == want["loss"],
+              f"{path} step {step}: resumed loss {got['loss']!r} differs "
+              f"from the straight run's {want['loss']!r}")
+    emit({"phase": "resume", "path": path, "steps": steps,
+          "checkpoint_after_step": at, "save_ms": save_ms,
+          "restore_ms": restore_ms, "bytes_written": nbytes,
+          "params": sum(p.numel() for ps in saved.values()
+                        for p in ps.values()),
+          "median_ms": {"straight": _median_ms(straight),
+                        "before_checkpoint": _median_ms(before_ckpt),
+                        "resumed": _median_ms(resumed)},
+          "losses_straight": [r["loss"] for r in straight],
+          "losses_resumed": [r["loss"] for r in resumed],
+          "launches": launches, "resumed_launches": resumed_launches,
+          **({"hops": hops["n"], "resumed_hops": hops["n"] - hops_before}
+             if merged else {})})
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {path} path")
+    if merged:
+        check(launches["frontier_read"] == hops["n"] > 0,
+              f"{launches['frontier_read']} frontier_read launches for "
+              f"{hops['n']} hops (one per hop expected)")
+        for name in ("cache_access", "tiered_gather_unique", "store_fill"):
+            check(resumed_launches[name] > 0,
+                  f"{path}: {name} was not launched after the restore")
+    return launches
+
+
+def ladies_path(torch, np, work, host_feats, plane) -> dict:
+    """LADIES["batches"] feature batches of the LADIES sampler at fig15's
+    shape (batch 256, layer sizes 2048, 2048) on one plane: features bit
+    for bit, the request count, and cache hits after the first batch."""
+    from repro_torch.core import INTEL_OPTANE, GIDSDataLoader, LoaderConfig
+    from repro_torch.kernels import _build
+    graph, _, feats, _, _ = work
+    loader = GIDSDataLoader(
+        graph, feats,
+        LoaderConfig(batch_size=LADIES["batch"], sampler="ladies",
+                     ladies_layer_sizes=LADIES["layer_sizes"],
+                     data_plane=plane, cache_lines=FULL["cache_lines"],
+                     window_depth=8, cbuf_fraction=0.1),
+        ssd=INTEL_OPTANE, device=DEVICE)
+    sample_ms = []
+    sample_one = loader._sample_one
+
+    def timed_sample_one():
+        t = time.perf_counter()
+        blocks = sample_one()
+        sample_ms.append((time.perf_counter() - t) * 1e3)
+        return blocks
+    loader._sample_one = timed_sample_one
+    requests = LADIES["batch"] + sum(LADIES["layer_sizes"])
+    next_ms, hits = [], []
+    _build.reset_launches()
+    for i in range(LADIES["batches"]):
+        t = time.perf_counter()
+        batch = loader.next_batch()
+        torch.cuda.synchronize()
+        next_ms.append((time.perf_counter() - t) * 1e3)
+        nodes = torch.from_numpy(batch.blocks.all_nodes).to(DEVICE)
+        check(batch.features.device.type == DEVICE
+              and torch.equal(batch.features, host_feats[nodes]),
+              f"ladies {plane} batch {i}: features differ from "
+              "host_features[all_nodes]")
+        check(batch.blocks.num_requests == requests,
+              f"ladies {plane} batch {i}: {batch.blocks.num_requests} "
+              f"requests, {requests} expected")
+        hits.append(int(batch.report.n_hbm_hits))
+        check(i == 0 or hits[-1] > 0,
+              f"ladies {plane} batch {i}: no cache hit after the first")
+    launches = dict(_build.LAUNCHES)
+    path = f"ladies {plane}"
+    emit({"phase": "ladies", "plane": plane, "batch": LADIES["batch"],
+          "layer_sizes": list(LADIES["layer_sizes"]),
+          "batches": LADIES["batches"], "sampled": len(sample_ms),
+          "sample_ms": sample_ms, "next_batch_ms": next_ms,
+          "hbm_hits": hits, "launches": launches})
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {path} path")
+    return launches
+
+
+def _edge_keys(np, graph):
+    src = np.repeat(np.arange(graph.num_nodes, dtype=np.int64),
+                    graph.degrees())
+    return np.sort(src * graph.num_nodes + graph.indices.astype(np.int64))
+
+
+def _check_sampled(np, graph, keys, seeds, hops, what: str) -> None:
+    """Every sampled id is an out-neighbour of its destination, or the
+    destination itself where its degree is 0 (on the host, against the
+    CSR's (src, dst) key set)."""
+    deg = graph.degrees()
+    frontier = np.asarray(seeds, np.int64)
+    for h, (f, hop) in enumerate(zip(SAMPLER["fanouts"], hops)):
+        nbr = hop.cpu().numpy().astype(np.int64)
+        dst = np.repeat(frontier, f)
+        key = dst * graph.num_nodes + nbr
+        pos = np.minimum(np.searchsorted(keys, key), len(keys) - 1)
+        ok = np.where(deg[dst] > 0, keys[pos] == key, nbr == dst)
+        check(bool(ok.all()), f"{what} hop {h}: {int((~ok).sum())} sampled "
+                              "ids are neither an out-neighbour of their "
+                              "destination nor its self-loop")
+        frontier = nbr
+
+
+def _reference_hops(np, graph, seeds, draws) -> list:
+    """The reference device sampler's arithmetic (repro's
+    sampling/neighbor.py `device_sample_blocks`) in numpy on the host,
+    given each hop's uniform draws."""
+    frontier = np.asarray(seeds, np.int64)
+    hops = []
+    for r in draws:
+        start = graph.indptr[frontier]
+        deg = graph.indptr[frontier + 1] - start
+        offs = np.floor(r * np.maximum(deg, 1).astype(np.float32)[:, None])
+        idx = np.minimum(start[:, None] + offs.astype(np.int64),
+                         graph.num_edges - 1)
+        nbr = np.where(deg[:, None] > 0, graph.indices[idx],
+                       frontier[:, None]).reshape(-1)
+        hops.append(nbr)
+        frontier = nbr
+    return hops
+
+
+def device_sampler(torch, np) -> None:
+    """The device sampler against the host sampler on fig7's measured
+    graphs (IGB tiny, small and medium as materialised here), batch 512,
+    fanouts (10, 5): every device batch held to its properties, and each
+    sampler's median time per batch.  Each device batch is also held, id
+    for id, against the reference's arithmetic on the host fed the same
+    draws (replayed from the generator's state before the call)."""
+    from repro_torch.graph import datasets
+    from repro_torch.graph.csr import device_index_dtype
+    from repro_torch.sampling.neighbor import (device_sample_blocks,
+                                               host_sample_blocks,
+                                               subgraph_sizes)
+    batch, fanouts = SAMPLER["batch"], SAMPLER["fanouts"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for name in SAMPLER["datasets"]:
+        t0 = time.perf_counter()
+        graph = getattr(datasets, name).materialize()
+        keys = _edge_keys(np, graph)
+        rng = np.random.default_rng(0)
+        seeds = rng.integers(0, graph.num_nodes, batch)
+        csr = graph.to_device(device=DEVICE)
+        setup_s = time.perf_counter() - t0
+        dt = device_index_dtype(graph.num_nodes, graph.num_edges)
+        dseeds = torch.from_numpy(seeds).to(DEVICE)
+        dev_ms = []
+        for call in range(SAMPLER["device_calls"]):
+            gen_state = gen.get_state()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hops, flat = device_sample_blocks(csr, dseeds, fanouts, gen)
+            torch.cuda.synchronize()
+            dev_ms.append((time.perf_counter() - t) * 1e3)
+            what = f"device sampler {name} call {call}"
+            n = batch
+            for f, hop in zip(fanouts, hops):
+                n *= f
+                check(tuple(hop.shape) == (n,) and hop.dtype == dt,
+                      f"{what}: a hop of shape {tuple(hop.shape)} {hop.dtype}")
+            check(tuple(flat.shape) == (subgraph_sizes(batch, fanouts),)
+                  and flat.dtype == dt and flat.is_cuda,
+                  f"{what}: flat ids of shape {tuple(flat.shape)} "
+                  f"{flat.dtype} on {flat.device}")
+            check(np.array_equal(flat[:batch].cpu().numpy(), seeds),
+                  f"{what}: the flat ids do not start with the seeds")
+            _check_sampled(np, graph, keys, seeds, hops, what)
+            replay = torch.Generator(device=DEVICE)
+            replay.set_state(gen_state)
+            n, draws = batch, []
+            for f in fanouts:
+                draws.append(torch.rand((n, f), generator=replay,
+                                        device=DEVICE).cpu().numpy())
+                n *= f
+            want = _reference_hops(np, graph, seeds, draws)
+            for h, (hop, w) in enumerate(zip(hops, want, strict=True)):
+                got = hop.cpu().numpy().astype(np.int64)
+                check(np.array_equal(got, w),
+                      f"{what} hop {h}: {int((got != w).sum())} ids differ "
+                      "from the reference's arithmetic on the same draws")
+        # the card's busy time for one call, apart from the host's
+        # dispatch: the launches queue up behind a device-side sleep
+        sleep_ms, busy_ms, enqueue_ms = [], [], []
+        for _ in range(SAMPLER["device_calls"]):
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            torch.cuda._sleep(ENQUEUE_SLEEP_CYCLES)
+            ev[1].record()
+            t = time.perf_counter()
+            device_sample_blocks(csr, dseeds, fanouts, gen)
+            enqueue_ms.append((time.perf_counter() - t) * 1e3)
+            ev[2].record()
+            ev[2].synchronize()
+            sleep_ms.append(ev[0].elapsed_time(ev[1]))
+            busy_ms.append(ev[1].elapsed_time(ev[2]))
+        host_ms = []
+        for _ in range(SAMPLER["host_calls"]):
+            t = time.perf_counter()
+            host_sample_blocks(graph, seeds, fanouts, rng)
+            host_ms.append((time.perf_counter() - t) * 1e3)
+        dev, host = statistics.median(dev_ms), statistics.median(host_ms)
+        emit({"phase": "device_sampler", "dataset": name,
+              "nodes": graph.num_nodes, "edges": graph.num_edges,
+              "index_dtype": str(dt), "setup_s": setup_s,
+              "device_ms": dev, "host_ms": host,
+              "host_over_device": host / dev,
+              "device_busy_ms": statistics.median(busy_ms),
+              "device_enqueue_ms": statistics.median(enqueue_ms),
+              "sleep_ms": statistics.median(sleep_ms),
+              "device_ms_all": dev_ms, "host_ms_all": host_ms})
+
+
+def resume_and_samplers(torch, np) -> dict:
+    """Phase 4c: the two resume paths, LADIES on two planes, and the
+    device sampler."""
+    t0 = time.perf_counter()
+    work = workload(torch, np)
+    host_feats = torch.from_numpy(work[2]).to(DEVICE)
+    emit({"phase": "setup", "plane": "resume and samplers",
+          "seconds": round(time.perf_counter() - t0, 3)})
+    by_path = {}
+    for path in RESUME:
+        by_path[path] = resume_path(torch, np, work, host_feats, path)
+        torch.cuda.empty_cache()
+    for plane in LADIES["planes"]:
+        by_path[f"ladies {plane}"] = ladies_path(torch, np, work,
+                                                 host_feats, plane)
+    del work, host_feats
+    torch.cuda.empty_cache()
+    device_sampler(torch, np)
+    return by_path
+
+
 LM_PATH = "lm-serve"
 
 
@@ -1879,6 +2318,12 @@ PATH_KERNELS = {
     "gids-async": ("segment_mean", "tiered_gather", "store_fill"),
     "gids-merged-async": ("segment_mean", "tiered_gather_unique",
                           "store_fill"),
+    RESUME_ASYNC: ("segment_mean", "tiered_gather", "store_fill"),
+    RESUME_MERGED: ("segment_mean", "tiered_gather_unique", "frontier_read",
+                    "store_fill", "cache_bucket", "cache_access"),
+    "ladies gids": ("tiered_gather", "store_fill"),
+    "ladies gids-device": ("tiered_gather", "store_fill", "cache_bucket",
+                           "cache_access"),
     LM_PATH: ("flash_attention", "flash_combine"),
 }
 
@@ -1970,6 +2415,8 @@ def main() -> int:
     by_path[MERGED_PLANE] = merged_topology_path(torch, np)
     torch.cuda.empty_cache()
     by_path.update(host_planes(torch, np))
+    torch.cuda.empty_cache()
+    by_path.update(resume_and_samplers(torch, np))
     torch.cuda.empty_cache()
     lm_gate_f32(torch, np)
     torch.cuda.empty_cache()

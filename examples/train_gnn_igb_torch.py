@@ -8,7 +8,14 @@ metadata and the cache access on the GPU too.
 The defaults are the reference example's full width: 100k nodes, 1024-d
 features, hidden 4096 (about 42M parameters), batch 512, fanouts (10, 5).
 
+A `StepWatchdog` times every step and prints the stragglers; with
+`--ckpt-dir` the parameters (in the reference's layout) and the loader's
+resume point are checkpointed every 100 steps, in the format the JAX
+package's `repro.train.checkpoint` reads.
+
     PYTHONPATH=src python examples/train_gnn_igb_torch.py --steps 300
+    PYTHONPATH=src python examples/train_gnn_igb_torch.py --steps 300 \
+        --ckpt-dir /path/to/ckpts
     PYTHONPATH=src python examples/train_gnn_igb_torch.py --device cpu \
         --steps 3 --nodes 5000 --feature-dim 64 --hidden 64 --batch 64
 
@@ -25,6 +32,8 @@ from repro_torch import resolve_device
 from repro_torch.core import INTEL_OPTANE, GIDSDataLoader, LoaderConfig
 from repro_torch.graph.synthetic import rmat_graph
 from repro_torch.models.gnn import GNN, GNNConfig, hop_indices, sgd_step
+from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train.fault_tolerance import StepWatchdog, WatchdogConfig
 
 
 def main():
@@ -39,6 +48,7 @@ def main():
                     help="data-plane preset (gids-async overlaps prep with "
                          "the measured train step)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default="")
     args = ap.parse_args()
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -81,7 +91,9 @@ def main():
     t0 = time.time()
     losses, prep_times, exposed_times = [], [], []
     last_step_s = 0.0     # measured compute the prefetch overlapped with
+    watchdog = StepWatchdog(WatchdogConfig(checkpoint_every=100))
     for it in range(args.steps):
+        watchdog.start_step(it)
         b = loader.next_batch(compute_s=last_step_s)
         hi = [torch.from_numpy(i).to(dev) for i in hop_indices(b.blocks)]
         y = labels_dev[torch.from_numpy(b.blocks.seeds).to(dev)]
@@ -89,6 +101,10 @@ def main():
         losses.append(sgd_step(gnn, b.features, hi, y, args.lr).item())
         if it > 0:       # step 0 pays the first kernel builds and launches
             last_step_s = time.perf_counter() - ts   # .item() synchronised
+        if watchdog.end_step():
+            print(f"iter {it:4d} STRAGGLER: step took "
+                  f"{watchdog.flagged[-1][1]*1e3:.1f} ms "
+                  f"(median {watchdog.median_step_s*1e3:.1f} ms)")
         prep_times.append(b.prep_time_s)
         exposed_times.append(b.exposed_prep_s)
         if it % 25 == 0 or it == args.steps - 1:
@@ -97,9 +113,13 @@ def main():
                   f"(exposed {np.mean(exposed_times[-25:])*1e3:.2f} ms, "
                   f"priced) cache_hit {hit_ratio():.2f} "
                   f"redirect {loader.accumulator.redirect_rate:.2f}")
+        if args.ckpt_dir and watchdog.should_checkpoint(it):
+            ckpt_lib.save(args.ckpt_dir, it, gnn.param_tree(),
+                          {"loader": loader.state_dict()})
 
     print(f"\n{args.steps} steps in {time.time()-t0:.1f}s | "
-          f"loss {np.mean(losses[:10]):.3f} -> {np.mean(losses[-10:]):.3f}")
+          f"loss {np.mean(losses[:10]):.3f} -> {np.mean(losses[-10:]):.3f} | "
+          f"{len(watchdog.flagged)} straggler steps")
 
 
 if __name__ == "__main__":

@@ -107,6 +107,12 @@ class DynamicAccessAccumulator:
     def redirect_rate(self) -> float:
         return self._redirect_rate
 
+    def reset_telemetry(self) -> None:
+        """Drop the redirection-rate EMA back to the fresh-accumulator state.
+        Checkpoint resume calls this so a restored loader and a freshly
+        built loader make bit-identical merge-depth decisions."""
+        self._redirect_rate = 0.0
+
     def storage_fraction(self) -> float:
         return max(1.0 - self._redirect_rate, 1e-3)
 

@@ -261,8 +261,27 @@ class TieredFeatureStore:
             wt.window.popleft()
 
     def reset(self) -> None:
+        self._stager.reset()
         for t in self.tiers:
             t.reset()
+
+    # -- checkpoint ------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Durable per-tier state, keyed by tier name.  Cache contents are
+        deliberately not checkpointed (they rebuild deterministically on
+        resume), and no ported tier has durable state: the sharded
+        placement brings one with ROADMAP.md Queue 1 item 7."""
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Refuses state for any tier: none of this stack's tiers is
+        stateful (a checkpoint of another plane names its tiers here)."""
+        if state:
+            raise ValueError(
+                f"checkpoint carries state for tiers {sorted(state)} but "
+                f"the stack has no stateful tier "
+                f"({[t.name for t in self.tiers]}) — plane/checkpoint "
+                f"mismatch")
 
     def device_rows(self, tier_index: int = 0) -> torch.Tensor:
         """The resident row store of a device tier, as `tiered_gather`

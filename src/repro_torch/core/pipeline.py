@@ -24,10 +24,16 @@ amortized across its batches.  On a topology plane
 (`DataPlaneSpec.topology`) sampling runs against a `TieredTopologyStore`
 and each batch's priced sampling time rides on its `prep_time_s`.
 
+The sampler is the neighbour sampler or LADIES (`LoaderConfig.sampler`).
+`state_dict()` / `load_state_dict()` capture and restore the resume point
+(the sampler state before the oldest batch not yet consumed), so a
+checkpointed run resumes with the same batches; the state is the
+reference's, key for key, and loads into either package's loader.
+
 The features of a `Batch` are a tensor on the loader's device; reports and
 priced floats stay host-side Python and numpy, bit-identical to the
-reference.  Sharding, hosts, faults, feedback, tracing and checkpoint
-state wait for later slices (ROADMAP.md Queue 1).
+reference.  Sharding, hosts, faults, feedback and tracing wait for later
+slices (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.sampling.ladies import ladies_sample_blocks
 from repro_torch.sampling.neighbor import SampledBlocks, host_sample_blocks
 from repro_torch.sampling.tiered import tiered_sample_blocks
 from .accumulator import AccumulatorConfig, DynamicAccessAccumulator
@@ -48,14 +55,18 @@ from .prefetch import PrefetchEngine
 from .storage_sim import INTEL_OPTANE, SSDSpec, StorageTimeline
 from .topology import TieredTopologyStore
 
-SAMPLERS = ("neighbor",)
+#: Sampler names the loader knows how to drive.  `LoaderConfig` validates
+#: at construction: an unknown sampler fails when the config is built, not
+#: on the first batch.
+SAMPLERS = ("neighbor", "ladies")
 
 
 @dataclasses.dataclass
 class LoaderConfig:
     batch_size: int = 4096
     fanouts: Sequence[int] = (10, 5, 5)       # 3 sampling layers (paper §4.1)
-    sampler: str = "neighbor"
+    sampler: str = "neighbor"                  # or "ladies"
+    ladies_layer_sizes: Sequence[int] = (512, 512, 512)
     data_plane: DataPlaneSpec | str | None = None  # preset name or spec;
                                                    # None resolves to "gids"
     window_depth: int = 8                      # paper default
@@ -75,9 +86,9 @@ class LoaderConfig:
 
     def __post_init__(self) -> None:
         if self.sampler not in SAMPLERS:
-            raise NotImplementedError(
-                f"sampler {self.sampler!r} is not ported yet (ROADMAP.md "
-                f"Queue 1: LADIES); ported samplers: {SAMPLERS}")
+            raise ValueError(
+                f"unknown sampler {self.sampler!r}; known samplers: "
+                f"{SAMPLERS}")
         if self.data_plane is None:
             self.data_plane = "gids"
 
@@ -136,6 +147,13 @@ class GIDSDataLoader:
         # edge-page namespace drains separate queues)
         self.topo: TieredTopologyStore | None = None
         if self.plane.topology:
+            if cfg.sampler != "neighbor":
+                raise ValueError(
+                    f"topology plane {self.spec.name!r} requires the "
+                    f"'neighbor' sampler (got {cfg.sampler!r}): LADIES "
+                    "scores whole frontier columns, not page-local "
+                    "adjacency reads, so its storage traffic is not "
+                    "page-priceable")
             self.topo = TieredTopologyStore.from_graph(
                 graph, admission=cfg.topo_admission,
                 gpu_fraction=cfg.topo_gpu_fraction,
@@ -154,12 +172,20 @@ class GIDSDataLoader:
         cfg = self.config
         seeds = self.rng.choice(self.train_ids, size=cfg.batch_size,
                                 replace=len(self.train_ids) < cfg.batch_size)
-        if self.topo is not None:
-            # same math, same RNG stream: blocks bit-identical to the host
-            # sampler, plus per-hop priced TopologyGatherReports
-            return tiered_sample_blocks(self.graph, self.topo, seeds,
-                                        cfg.fanouts, self.rng)
-        return host_sample_blocks(self.graph, seeds, cfg.fanouts, self.rng)
+        if cfg.sampler == "neighbor":
+            if self.topo is not None:
+                # same math, same RNG stream: blocks bit-identical to the
+                # host sampler, plus per-hop priced TopologyGatherReports
+                return tiered_sample_blocks(self.graph, self.topo, seeds,
+                                            cfg.fanouts, self.rng)
+            return host_sample_blocks(self.graph, seeds, cfg.fanouts,
+                                      self.rng)
+        if cfg.sampler == "ladies":
+            # LADIES reads the host CSR (a topology plane refuses it at
+            # construction, as the reference does)
+            return ladies_sample_blocks(self.graph, seeds,
+                                        cfg.ladies_layer_sizes, self.rng)
+        raise ValueError(cfg.sampler)
 
     def _refill_lookahead(self) -> int:
         """Run sampling ahead until the accumulator's merge depth is
@@ -271,3 +297,51 @@ class GIDSDataLoader:
                     self._merged_ready.append((p.snapshot, b))
             return self._merged_ready.popleft()[1]
         return self.execute(self.plan_next())
+
+    # -- state for checkpoint and restart -------------------------------------
+    def state_dict(self) -> dict:
+        """The resume point: the sampler state before the oldest batch not
+        yet consumed (a prefetched batch, then a batch of an executed merged
+        window, then a sampled-ahead batch, else the live RNG).
+        JSON-serialisable, equal to the reference's.  No ported tier has
+        durable state, so no `tier_state` is attached (the sharded
+        placement brings one with ROADMAP.md Queue 1 item 7)."""
+        if self.prefetch is not None:
+            snap = self.prefetch.oldest_snapshot()
+            if snap is not None:
+                return dict(snap)
+        if self._merged_ready:
+            # mid-window: the oldest executed-but-unconsumed batch's snapshot
+            return dict(self._merged_ready[0][0])
+        if self._lookahead:
+            return dict(self._lookahead[0][0])
+        return {"rng": self.rng.bit_generator.state,
+                "requests_per_iter": self._requests_per_iter}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Resume from `state_dict()` (of either package): afterwards the
+        loader delivers the batches a freshly built loader fed the same
+        state would, bit for bit."""
+        if "fault_state" in state:
+            raise NotImplementedError(
+                "the checkpoint carries fault-plane state, and the port has "
+                "no fault plane yet (ROADMAP.md Queue 1 item 7)")
+        # reset the tiers first: that waits for the copies still in flight
+        # out of the pinned staging buffers, and returns every cache, its
+        # row store and its metadata to the built state
+        self.plane.reset()
+        self.rng.bit_generator.state = state["rng"]
+        self._requests_per_iter = state["requests_per_iter"]
+        self._lookahead.clear()
+        self._win_idx = 0
+        # drop the batches staged past the resume point; each owns its rows
+        if self.prefetch is not None:
+            self.prefetch.reset()
+        self._merged_ready.clear()
+        if "tier_state" in state:
+            self.store.load_state_dict(state["tier_state"])
+        # and the merge-depth EMA, so the resumed loader makes the fresh
+        # loader's decisions.  The timelines keep no cross-burst telemetry
+        # until the sharded bursts (ROADMAP.md Queue 1 item 7), and the
+        # tracer's reset comes with the obs slice (item 8)
+        self.accumulator.reset_telemetry()

@@ -123,6 +123,13 @@ class HostStager:
         self._copied.record()
         return out
 
+    def reset(self) -> None:
+        """Back to the built state: wait for the last copy out of the pinned
+        buffer, then let the buffer go."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        self._pinned = self._copied = None
+
 
 def _stage_timer(device: torch.device):
     """(events, mark): `mark(stage)` records a CUDA event named `stage` on
@@ -298,6 +305,7 @@ class DeviceCacheTier(_TierBase):
         return self.rows
 
     def reset(self) -> None:
+        self._stager.reset()
         self.cache.reset()
         self.rows.zero_()
         self.last_rows = self.last_window_rows = None
@@ -426,6 +434,7 @@ class DeviceStoreTier(_TierBase):
         return self.store.rows
 
     def reset(self) -> None:
+        self._stager.reset()
         self.store = device_store.init_store(*self._init_args)
         self.window.clear()
         self.last_rows = self.last_window_rows = None

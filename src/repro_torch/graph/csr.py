@@ -2,20 +2,34 @@
 `repro.graph.csr`.
 
 Graph structure stays pinned in host memory while features live on
-storage, as in the paper.  `DeviceCSR` and `device_index_dtype` wait for
-the device sampler (ROADMAP.md Queue 1).
+storage, as in the paper.  A device-resident copy (`DeviceCSR`) serves the
+device sampler (`sampling.neighbor.device_sample_blocks`).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch import resolve_device
 
 
 def index_dtype(max_index: int) -> type:
     """Smallest numpy integer dtype that can index `max_index` items: past
     2^31 ids everything widens to int64 together."""
     return np.int64 if max_index >= 2 ** 31 else np.int32
+
+
+def device_index_dtype(num_nodes: int, num_edges: int) -> torch.dtype:
+    """The torch dtype device-side sampling uses for this graph's node and
+    edge ids: int32 below 2^31 nodes and edges, int64 beyond, the same
+    decision as `index_dtype`.  Torch has int64 on every device without a
+    flag, so unlike the JAX package (which needs `jax_enable_x64`) there is
+    no configuration that can refuse a large graph."""
+    if index_dtype(max(num_nodes, num_edges)) is np.int64:
+        return torch.int64
+    return torch.int32
 
 
 @dataclasses.dataclass
@@ -53,16 +67,32 @@ class CSRGraph:
         return CSRGraph(indptr=indptr, indices=indices, num_nodes=n,
                         feature_dim=self.feature_dim, name=self.name + "_rev")
 
-    def to_device(self, pad_degree=None):
-        raise NotImplementedError(
-            "DeviceCSR waits for the device sampler (ROADMAP.md Queue 1: "
-            "device_sample_blocks with a Philox sampler)")
+    def to_device(self, device: str | torch.device = "cuda") -> "DeviceCSR":
+        """A copy of the structure on `device`.  indptr values run up to
+        num_edges and indices up to num_nodes: both take the one dtype of
+        `device_index_dtype`."""
+        dev = resolve_device(device)
+        dt = device_index_dtype(self.num_nodes, self.num_edges)
+        return DeviceCSR(
+            indptr=torch.as_tensor(self.indptr).to(dev, dt),
+            indices=torch.as_tensor(self.indices).to(dev, dt),
+            num_nodes=self.num_nodes)
 
     def structure_bytes(self) -> int:
         return self.indptr.nbytes + self.indices.nbytes
 
     def feature_bytes(self, dtype_size: int = 4) -> int:
         return self.num_nodes * self.feature_dim * dtype_size
+
+
+@dataclasses.dataclass
+class DeviceCSR:
+    """Device-resident CSR for the device sampler: tensors on one device,
+    of the dtype `device_index_dtype` gives."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    num_nodes: int
 
 
 def from_edge_list(src: np.ndarray, dst: np.ndarray, num_nodes: int,

@@ -1,6 +1,6 @@
-"""RMAT synthetic graphs standing in for IGB/OGB, the port's copy of
-`repro.graph.synthetic` (`clustered_graph` and `uniform_graph` wait for the
-slices that use them)."""
+"""RMAT and uniform synthetic graphs standing in for IGB/OGB, the port's
+copy of `repro.graph.synthetic` (`clustered_graph` waits for the sharded
+planes, ROADMAP.md Queue 1)."""
 from __future__ import annotations
 
 import numpy as np
@@ -34,3 +34,16 @@ def rmat_graph(num_nodes: int, avg_degree: int, feature_dim: int,
     src, dst = rmat_edges(num_nodes, num_nodes * avg_degree, seed=seed)
     return from_edge_list(src, dst, num_nodes, feature_dim=feature_dim,
                           name=name)
+
+
+def uniform_graph(num_nodes: int, avg_degree: int, feature_dim: int,
+                  *, seed: int = 0, name: str = "uniform") -> CSRGraph:
+    """Erdos-Renyi-style graph: both endpoints of every edge uniform (no
+    degree skew), self-loops dropped."""
+    rng = np.random.default_rng(seed)
+    e = num_nodes * avg_degree
+    src = rng.integers(0, num_nodes, e)
+    dst = rng.integers(0, num_nodes, e)
+    keep = src != dst
+    return from_edge_list(src[keep], dst[keep], num_nodes,
+                          feature_dim=feature_dim, name=name)

@@ -111,13 +111,28 @@ class GNN(nn.Module):
         }
         return defs
 
+    def _groups(self) -> dict:
+        groups = {f"layer{l}": self.layer[l] for l in range(self.L)}
+        groups["head"] = self.head
+        return groups
+
+    def param_tree(self) -> dict:
+        """The parameters in the reference's layout, `{"layer0": {"w_self":
+        ..., "w_nbr": ..., "b": ...}, ..., "head": {"w": ..., "b": ...}}`,
+        as detached tensors that share the module's storage: the inverse of
+        `load_reference_params`, and the tree `train.checkpoint.save`
+        writes in the reference's format."""
+        return {g: {k: p.detach() for k, p in params.items()}
+                for g, params in self._groups().items()}
+
     @torch.no_grad()
     def load_reference_params(self, tree: dict) -> None:
-        """Copy the reference's parameter pytree (nested dicts of numpy
-        arrays, `repro.models.gnn.GNN.init` converted with np.asarray) into
-        this module.  Layouts match, so nothing is transposed."""
-        targets = {f"layer{l}": self.layer[l] for l in range(self.L)}
-        targets["head"] = self.head
+        """Copy a parameter tree in the reference's layout (nested dicts of
+        arrays: `repro.models.gnn.GNN.init` converted with np.asarray, or
+        tensors on any device, as `param_tree` or `train.checkpoint.restore`
+        give) into this module.  Layouts match, so nothing is
+        transposed."""
+        targets = self._groups()
         if set(tree) != set(targets):
             raise ValueError(f"parameter tree has groups {sorted(tree)}, "
                              f"model has {sorted(targets)}")
@@ -126,7 +141,9 @@ class GNN(nn.Module):
                 raise ValueError(f"{group}: tree has {sorted(tree[group])}, "
                                  f"model has {sorted(params)}")
             for k, p in params.items():
-                v = torch.as_tensor(np.asarray(tree[group][k]))
+                v = tree[group][k]
+                if not isinstance(v, torch.Tensor):
+                    v = torch.as_tensor(np.asarray(v))
                 if tuple(v.shape) != tuple(p.shape):
                     raise ValueError(f"{group}.{k}: shape {tuple(v.shape)} "
                                      f"!= {tuple(p.shape)}")

@@ -1,9 +1,12 @@
-"""GraphSAGE uniform neighborhood sampling on the host (paper §2.2.2), the
-port's copy of the numpy half of `repro.sampling.neighbor`.
+"""GraphSAGE uniform neighborhood sampling (paper §2.2.2), the port of
+`repro.sampling.neighbor`.
 
-Blocks are bit-identical to the reference for the same
-`np.random.Generator` state.  `device_sample_blocks` waits for a Philox
-device sampler (ROADMAP.md Queue 1).
+Host path (numpy) for the GIDS pipeline: blocks are bit-identical to the
+reference for the same `np.random.Generator` state.  Device path
+(`device_sample_blocks`, torch on the CSR's device) for the GPU sampler the
+paper motivates (fig3, fig7): the reference's math with draws from a
+`torch.Generator`, so it matches the reference by property (shapes,
+neighbour-or-self-loop), not by bits.
 """
 from __future__ import annotations
 
@@ -11,8 +14,9 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
-from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.csr import CSRGraph, DeviceCSR, device_index_dtype
 
 
 @dataclasses.dataclass
@@ -78,10 +82,34 @@ def host_sample_blocks(graph: CSRGraph, seeds: np.ndarray,
                          all_nodes=all_nodes, num_requests=n_req)
 
 
-def device_sample_blocks(*args, **kwargs):
-    raise NotImplementedError(
-        "device_sample_blocks waits for a Philox device sampler "
-        "(ROADMAP.md Queue 1)")
+def device_sample_blocks(csr: DeviceCSR, seeds, fanouts: Sequence[int],
+                         generator: torch.Generator
+                         ) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """Fixed-fanout uniform sampler on the CSR's device.  Returns (list of
+    per-hop node tensors, flat concatenated node ids); shapes are static
+    given (|seeds|, fanouts).  Ids carry `device_index_dtype`, the host
+    path's policy.  Each hop draws one `torch.rand` from `generator` (a
+    generator on the CSR's device); where the reference folds the hop index
+    into its key, here the generator's offset advances."""
+    dev = csr.indptr.device
+    n_edges = csr.indices.shape[0]
+    dt = device_index_dtype(csr.num_nodes, n_edges)
+    seeds = torch.as_tensor(seeds).to(dev, dt)
+    frontier = seeds
+    hops = []
+    for f in fanouts:
+        start = csr.indptr[frontier]
+        deg = csr.indptr[frontier + 1] - start
+        r = torch.rand((frontier.shape[0], f), generator=generator,
+                       device=dev)
+        offs = torch.floor(r * deg.clamp(min=1)[:, None]).to(dt)
+        idx = torch.clamp(start[:, None] + offs, max=n_edges - 1)
+        nbr = csr.indices[idx].to(dt)
+        nbr = torch.where(deg[:, None] > 0, nbr, frontier[:, None])
+        nbr = nbr.reshape(-1)
+        hops.append(nbr)
+        frontier = nbr
+    return hops, torch.cat([seeds, *hops])
 
 
 def subgraph_sizes(batch: int, fanouts: Sequence[int]) -> int:

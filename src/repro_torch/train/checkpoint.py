@@ -1,0 +1,145 @@
+"""Checkpointing with atomic commit and pipeline-state capture, the port of
+`repro.train.checkpoint` for a tree on one device.
+
+  * a tree is nested dicts and lists (or tuples) of tensors; each leaf is
+    written as one raw .npy file keyed by its path, in the format the JAX
+    package writes for an unsharded array on one device, so either package
+    restores the other's checkpoints: dict keys sorted and joined with "/",
+    files `<key with . for />.0.npy`, the shard's `index` one `[null, null]`
+    per dimension, bf16 stored as uint16 with `"bf16_as_u16": true`;
+  * manifest.json records every leaf's shape and dtype plus the step and
+    the caller's `extra` state (the loader's `state_dict()`, whose PCG64
+    state is plain JSON integers);
+  * writes go to ``step_XXXXXXXX.tmp/`` and one atomic rename publishes the
+    checkpoint, so a crash mid-write never corrupts the latest commit; the
+    last 3 commits are kept.
+
+Restoring onto a mesh (the reference's `shardings=`) waits for the
+distributed slice (ROADMAP.md Queue 1 item 11).
+"""
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+KEEP = 3
+
+
+def _flatten(tree, prefix: str = "") -> dict[str, Any]:
+    """Leaves by path, in the JAX package's order: dict keys sorted, list
+    and tuple items by index."""
+    if isinstance(tree, dict):
+        items = ((str(k), tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out: dict[str, Any] = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def _unflatten(like, flat: dict[str, Any], prefix: str = ""):
+    """`like`'s structure with each leaf taken from `flat` by path."""
+    def key(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(like, dict):
+        return {k: _unflatten(v, flat, key(k)) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, flat, key(i))
+                          for i, v in enumerate(like))
+    return flat[prefix]
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def save(ckpt_dir: str | Path, step: int, tree: Any,
+         extra_state: dict | None = None) -> Path:
+    """Write a checkpoint; returns the committed directory."""
+    ckpt_dir = Path(ckpt_dir)
+    tmp = ckpt_dir / f"step_{step:08d}.tmp"
+    final = ckpt_dir / f"step_{step:08d}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+
+    manifest = {"step": step, "leaves": {}, "extra": extra_state or {}}
+    for key, leaf in _flatten(tree).items():
+        t = torch.as_tensor(leaf)
+        entry = {"shape": list(t.shape), "dtype": _dtype_name(t.dtype),
+                 "shards": []}
+        fn = f"{key.replace('/', '.')}.0.npy"
+        np.save(tmp / fn, _to_numpy(t))
+        if t.dtype == torch.bfloat16:
+            entry["bf16_as_u16"] = True
+        entry["shards"].append({"file": fn,
+                                "index": [[None, None]] * t.dim()})
+        manifest["leaves"][key] = entry
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)                      # atomic commit
+    for old in sorted(ckpt_dir.glob("step_[0-9]*"))[:-KEEP]:
+        if old.is_dir() and not old.name.endswith(".tmp"):
+            shutil.rmtree(old)
+    return final
+
+
+def latest_step(ckpt_dir: str | Path) -> int | None:
+    ckpt_dir = Path(ckpt_dir)
+    steps = sorted(int(p.name.split("_")[1]) for p in
+                   ckpt_dir.glob("step_[0-9]*") if p.is_dir()
+                   and not p.name.endswith(".tmp"))
+    return steps[-1] if steps else None
+
+
+def _load_leaf(d: Path, entry: dict) -> torch.Tensor:
+    """One leaf's global array, assembled from its shards (one for the
+    port's checkpoints; the JAX package may have written several)."""
+    bf16 = entry.get("bf16_as_u16", False)
+    out = np.zeros(tuple(entry["shape"]),
+                   dtype=np.uint16 if bf16 else entry["dtype"])
+    for sh in entry["shards"]:
+        data = np.load(d / sh["file"])
+        if sh["index"] is None:
+            out = data
+        else:
+            out[tuple(slice(a, b) for a, b in sh["index"])] = data
+    if bf16:
+        return torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(out)
+
+
+def restore(ckpt_dir: str | Path, step: int, like: Any,
+            shardings: Any | None = None) -> tuple[Any, dict]:
+    """Restore into the structure of `like` (nested dicts and lists of
+    tensors): each leaf lands on the device and in the dtype of its `like`
+    leaf.  Returns (tree, extra_state)."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "restoring onto a mesh (shardings=) waits for the distributed "
+            "slice (ROADMAP.md Queue 1 item 11)")
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    flat_like = _flatten(like)
+    rebuilt = {}
+    for key, want in flat_like.items():
+        want = torch.as_tensor(want)
+        rebuilt[key] = _load_leaf(d, manifest["leaves"][key]).to(
+            want.device, want.dtype)
+    return _unflatten(like, rebuilt), manifest.get("extra", {})

@@ -87,8 +87,15 @@ def test_hop_indices_roundtrip():
 
 
 def test_unported_entry_points_raise():
+    """The device CSR and the device sampler, once refused, now run: on
+    the CPU when asked for it, and on the card by default, which raises
+    here without one instead of falling back."""
     g = synthetic.rmat_graph(100, 4, 4, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        g.to_device()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        neighbor.device_sample_blocks(g, np.arange(4), (2,), None)
+    d = g.to_device(device="cpu")
+    np.testing.assert_array_equal(d.indices.numpy(), g.indices)
+    hops, flat = neighbor.device_sample_blocks(
+        d, np.arange(4), (2,), torch.Generator().manual_seed(0))
+    assert flat.shape == (neighbor.subgraph_sizes(4, (2,)),)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            g.to_device()

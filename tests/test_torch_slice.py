@@ -111,9 +111,10 @@ def test_three_sgd_steps_match_reference():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
-    """The host planes, merged windows and the topology plane are ported;
-    the sharded and GNN-serving presets and the LADIES sampler still
-    raise, naming their ROADMAP item."""
+    """The host planes, merged windows, the topology plane and the LADIES
+    sampler are ported; the sharded and GNN-serving presets still raise,
+    naming their ROADMAP item, and an unknown sampler raises ValueError
+    when the config is built."""
     for name in ("gids-sharded", "serve-gnn"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             DataPlaneSpec.preset(name)
@@ -127,8 +128,9 @@ def test_unported_options_raise_with_their_roadmap_item():
     assert spec.merge_execute and spec.topology
     with pytest.raises(KeyError):
         DataPlaneSpec.preset("no-such-plane")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        LoaderConfig(sampler="ladies")
+    assert LoaderConfig(sampler="ladies").sampler == "ladies"
+    with pytest.raises(ValueError, match="unknown sampler"):
+        LoaderConfig(sampler="graphsaint")
 
 
 def _no_jax_env() -> dict:
