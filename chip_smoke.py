@@ -101,6 +101,35 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ratio; and the card's busy time for one call, measured with the
    launches queued behind a device-side sleep (with the host's enqueue
    time and the sleep's length beside it).
+4d. The sharded, cluster, fault and adaptive planes, at phase 3's width.
+   A (FAULT_PLANE): `gids-sharded` over 4 shards with the `adaptive`
+   placement, 2-way replication and `fault_schedule()` (a 10x brownout of
+   shard 2, an outage of shard 0, flaky reads on shard 1, hedged reads),
+   FAULT["steps"] steps whose epochs of FAULT["epoch"] batches, counted in
+   sampling order, draw their seeds from one shard of the degree table
+   each.  B (CLUSTER_PLANE): `gids-hosts-merged` with `topology=True` over
+   4 hosts, the metis-lite placement co-partitioned (built once and
+   registered as METIS_BUILT), `topo_admission="adaptive"`, two merged
+   windows of 8.  Gates: features bit for bit; on B every hop's words
+   equal `graph.indices[pos]` with one `frontier_read` a hop, and some
+   hops read after the topology refresh, whose device page table and hot
+   pages must hold the new placement; step 0's loss within rtol 1e-5 of
+   the plain versions'; finite losses; exposed prep <= prep; the priced
+   sequence (prep, sampling, exposed prep, shard and remote rows and
+   lines) equal, float for float, to a features-only twin loader's on the
+   CPU; at least one committed migration, faulted burst and rerouted read
+   on A and one topology refresh on B; the gather launched once a batch
+   and `segment_mean` twice a step.  On A the state saved after
+   FAULT["resume_at"] steps carries `tier_state` and `fault_state`, goes
+   through `train.checkpoint` and comes back equal, and a fresh card
+   loader and a fresh CPU twin restored from it deliver the remaining
+   batches: nodes and features as the straight run's, `tiered_gather` and
+   `store_fill` launched once a batch, priced prep equal to each other's.
+   Prints each step's `next_batch` host ms
+   split as in phase 4b with the host ms of pricing and feedback, each
+   burst's prep, straggler, imbalance (remote fraction on B), the
+   migrations, refreshes, hedged bursts and rerouted reads, and the
+   metis-lite build seconds and cut-edge fraction.
 5. LM serving at the full published width of qwen2-1.5b (28 layers,
    d_model 1536, 12 heads, GQA kv 2, hd 128, d_ff 8960, padded vocab
    153600, 1,546,270,208 parameters) with `attn_impl="flash"`, weights
@@ -142,6 +171,7 @@ The script imports torch, numpy and the port (src/repro_torch) only.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -2050,6 +2080,482 @@ def resume_and_samplers(torch, np) -> dict:
     return by_path
 
 
+#: phase 4d: the fault-and-adaptive plane (4 shards, adaptive placement,
+#: 2-way replication, a fault schedule) and the cluster plane (4 hosts,
+#: metis-lite co-partitioned, adaptive topology admission)
+FAULT_PLANE = "gids-sharded+faults+adaptive"
+CLUSTER_PLANE = "gids-hosts-merged+topology"
+#: A: FAULT["steps"] steps in epochs of FAULT["epoch"] batches; epoch e's
+#: batches (counted in the order they are sampled) draw their seeds from
+#: shard e % 4 of the static degree table, fig_adaptive.rotation's drift.
+#: The loader's state is saved after FAULT["resume_at"] steps.
+FAULT = dict(steps=24, epoch=6, resume_at=14, n_shards=4, replication=2,
+             rebalance_interval=4)
+#: B: CLUSTER["steps"] steps, two merged windows of 8; the refresher
+#: considers a re-admission after every window
+CLUSTER = dict(steps=16, n_hosts=4, rebalance_interval=1)
+#: the metis-lite table, built once and registered under this name for
+#: the card's loader and its twin
+METIS_BUILT = "metis-lite-built"
+
+
+def fault_schedule():
+    """A's schedule, in the style of benchmarks/fig_faults.py: shard 2
+    browns out 10x for bursts 2-13, shard 0 is dead for bursts 6-8, shard
+    1's reads fail with probability 0.2 for bursts 3-19, and the straggler
+    is hedged to a replica."""
+    from repro_torch.core import (BrownoutEvent, FaultSchedule,
+                                  FlakyReadsEvent, HedgePolicy, OutageEvent)
+    return FaultSchedule(
+        events=(BrownoutEvent(shard=2, start=2, end=14, multiplier=10.0),
+                OutageEvent(shard=0, start=6, end=9),
+                FlakyReadsEvent(shard=1, start=3, end=20, fail_prob=0.2)),
+        hedge=HedgePolicy(), seed=3)
+
+
+def _cluster_config(path: str, cfg):
+    from repro_torch.core import LoaderConfig
+    from repro_torch.core.dataplane import DataPlaneSpec
+    common = dict(batch_size=FULL["batch"], fanouts=cfg.fanouts,
+                  cache_lines=FULL["cache_lines"], window_depth=8,
+                  cbuf_fraction=0.1)
+    if path == FAULT_PLANE:
+        return LoaderConfig(
+            data_plane="gids-sharded", n_shards=FAULT["n_shards"],
+            placement="adaptive", replication_factor=FAULT["replication"],
+            fault_schedule=fault_schedule(),
+            rebalance_interval=FAULT["rebalance_interval"], **common)
+    return LoaderConfig(
+        data_plane=DataPlaneSpec.preset("gids-hosts-merged", topology=True),
+        n_hosts=CLUSTER["n_hosts"], placement=METIS_BUILT,
+        co_partition=True, topo_admission="adaptive",
+        rebalance_interval=CLUSTER["rebalance_interval"], **common)
+
+
+def _cluster_loader(graph, feats, cfg, device, hot=None, first=0):
+    """A loader of `cfg` on `device`; with `hot`, the sampled-order drift:
+    the batch sampled k-th (counting from `first`) draws its seeds from
+    hot[(k // FAULT["epoch"]) % len(hot)]."""
+    from repro_torch.core import INTEL_OPTANE, GIDSDataLoader
+    loader = GIDSDataLoader(graph, feats, cfg, ssd=INTEL_OPTANE,
+                            device=device)
+    if hot is not None:
+        sample, count = loader._sample_one, [first]
+
+        def drifted():
+            loader.train_ids = hot[(count[0] // FAULT["epoch"]) % len(hot)]
+            count[0] += 1
+            return sample()
+        loader._sample_one = drifted
+    return loader
+
+
+def _priced(batch) -> tuple:
+    """What a twin must reproduce of one batch, float for float."""
+    r = batch.report
+    return (batch.prep_time_s, batch.sample_time_s, batch.exposed_prep_s,
+            r.shard_rows, getattr(r, "shard_lines", ()), r.remote_rows,
+            getattr(r, "remote_lines", ()))
+
+
+def _twin_run(np, graph, feats, cfg, steps, hot=None, state=None,
+              first=0) -> list:
+    """The priced sequence of a features-only twin of the card's loader on
+    the CPU: the same configuration and inputs, plain versions for every
+    kernel.  With `state`, the twin is restored from it first."""
+    loader = _cluster_loader(graph, feats, cfg, "cpu", hot, first)
+    if state is not None:
+        loader.load_state_dict(state)
+    return [_priced(loader.next_batch()) for _ in range(steps)]
+
+
+def cluster_plane_path(torch, np, work, host_feats, path, hot=None) -> dict:
+    """Train one phase-4d plane on the card through `next_batch()`,
+    printing each step's split, each burst's telemetry and each controller
+    action, then hold its priced sequence against a CPU twin's."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models.gnn import hop_indices, sgd_step
+    graph, labels_all, feats, cfg, gnn = work
+    merged = path == CLUSTER_PLANE
+    steps_n = CLUSTER["steps"] if merged else FAULT["steps"]
+    loader_cfg = _cluster_config(path, cfg)
+    t0 = time.perf_counter()
+    loader = _cluster_loader(graph, feats, loader_cfg, DEVICE, hot)
+    build_s = time.perf_counter() - t0
+    tier, backstop = loader.store.tiers[0], loader.store.tiers[-1]
+    gather_name = "tiered_gather_unique" if merged else "tiered_gather"
+    labels_dev = torch.from_numpy(labels_all).to(DEVICE)
+    emit({"phase": "setup", "plane": path, "seconds": round(build_s, 3),
+          "shards": backstop.n_shards,
+          "placement": getattr(backstop.placement, "name", None),
+          **({"cut_edge_fraction": backstop.cut_edge_fraction(),
+              "placement_remote_fraction": backstop.remote_fraction(),
+              "edge_pages": loader.topo.n_pages,
+              "pages_by_tier": list(loader.topo.tier_pages())}
+             if merged else {})})
+
+    # every probe's split, the host time of pricing and feedback, and (on
+    # B) every hop's words held against graph.indices
+    probes, pricing = [], []
+    probe_rows = tier._probe_rows
+
+    def recorded_probe(*args):
+        hits = probe_rows(*args)
+        probes.append({"split": dict(tier.last_split_ms),
+                       "counts": dict(tier.last_counts)})
+        return hits
+
+    def timed(fn):
+        def wrapped(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            pricing.append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    patches = [mock.patch.object(tier, "_probe_rows", recorded_probe),
+               mock.patch.object(loader, "_feedback_step",
+                                 timed(loader._feedback_step))]
+    if merged:
+        patches.append(mock.patch.object(
+            loader.timeline, "price_merged_burst",
+            timed(loader.timeline.price_merged_burst)))
+    else:
+        patches.append(mock.patch.object(loader.plane, "price",
+                                         timed(loader.plane.price)))
+    hops = {"n": 0, "gate_s": 0.0, "after_refresh": 0}
+    if merged:
+        _checked_words(np, loader, graph, hops)
+        read = loader.topo.frontier_gather
+
+        def counted(pos):
+            hops["after_refresh"] += loader.topo_refresher.n_refreshes > 0
+            return read(pos)
+        loader.topo.frontier_gather = counted
+
+    plain0 = []
+    gather = getattr(ops, gather_name)
+    plain = getattr(ref, gather_name + "_ref")
+
+    def gather_and_plain(*args):
+        out = gather(*args)
+        if not plain0:
+            plain0.append(plain(*args))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, priced, state, straight_nodes = [], [], None, []
+    n_migrations = n_refreshes = 0
+    for p in patches:
+        p.start()
+    try:
+        _build.reset_launches()
+        for step in range(steps_n):
+            n_probes, n_priced = len(probes), len(pricing)
+            gate_s = hops["gate_s"]
+            t_start = time.perf_counter()
+            if step == 0:
+                with mock.patch.object(ops, gather_name, gather_and_plain):
+                    batch = loader.next_batch()
+            else:
+                batch = loader.next_batch()
+            t_batch = time.perf_counter()
+            gate_s = hops["gate_s"] - gate_s
+            nodes = torch.from_numpy(batch.blocks.all_nodes).to(DEVICE)
+            hi = [torch.from_numpy(i).to(DEVICE)
+                  for i in hop_indices(batch.blocks)]
+            y = labels_dev[torch.from_numpy(batch.blocks.seeds).to(DEVICE)]
+            if step == 0:
+                saved = dict(_build.LAUNCHES)
+                check(len(plain0) == 1
+                      and torch.equal(plain0[0], batch.features),
+                      f"{path} step 0: {gather_name} differs from its plain "
+                      "version on the path")
+                with torch.no_grad():
+                    loss_kernel = gnn.loss(batch.features, hi, y).item()
+                    with mock.patch.object(ops, "segment_mean",
+                                           ref.segment_mean_ref):
+                        loss_plain = gnn.loss(plain0[0], hi, y).item()
+                _build.LAUNCHES.update(saved)
+                plain0.clear()
+                rel = abs(loss_kernel - loss_plain) / abs(loss_plain)
+                emit({"phase": "step0_parity", "plane": path,
+                      "loss_kernel": loss_kernel, "loss_plain": loss_plain,
+                      "rel_err": rel})
+                check(rel <= 1e-5, f"{path} step-0 loss {loss_kernel} vs "
+                                   f"plain {loss_plain}")
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            loss = sgd_step(gnn, batch.features, hi, y, 0.05)
+            ev1.record()
+            loss_v = loss.item()                  # synchronises the step
+            t_end = time.perf_counter()
+            check(batch.features.device.type == DEVICE
+                  and torch.equal(batch.features, host_feats[nodes]),
+                  f"{path} step {step}: features differ from "
+                  "host_features[all_nodes]")
+            check(np.isfinite(loss_v), f"{path} step {step}: loss {loss_v}")
+            check(batch.exposed_prep_s <= batch.prep_time_s,
+                  f"{path} step {step}: exposed prep {batch.exposed_prep_s}"
+                  f" above prep {batch.prep_time_s}")
+            priced.append(_priced(batch))
+            straight_nodes.append(batch.blocks.all_nodes)
+            made = probes[n_probes:]
+            split = {f"{k}_ms": sum(p["split"].get(k, 0.0) for p in made)
+                     for k in ("probe", "stage_host", "h2d", "gather",
+                               "fill")}
+            steps.append({"phase": "step", "plane": path, "step": step,
+                          "loss": loss_v,
+                          "batch_rows": int(batch.report.n_requests),
+                          "next_batch_ms": (t_batch - t_start - gate_s) * 1e3,
+                          "probes": len(made), **split,
+                          "pricing_ms": sum(pricing[n_priced:]) * 1e3,
+                          "train_ms": ev0.elapsed_time(ev1),
+                          "wall_ms": (t_end - t_start - gate_s) * 1e3,
+                          "prep_time_s": batch.prep_time_s,
+                          "sample_time_s": batch.sample_time_s,
+                          "exposed_prep_s": batch.exposed_prep_s})
+            emit(steps[-1])
+            if len(made):                   # a burst was priced this step
+                burst = loader.timeline.shard_burst
+                emit({"phase": "burst", "plane": path, "step": step,
+                      "prep_time_s": batch.prep_time_s,
+                      "exposed_prep_s": batch.exposed_prep_s,
+                      "straggler": burst.straggler,
+                      "imbalance": burst.imbalance,
+                      "per_shard_s": list(burst.per_shard_s),
+                      "shard_rows": list(burst.per_shard_rows),
+                      **({"remote_fraction": burst.remote_fraction}
+                         if merged else
+                         {"faulted": getattr(burst, "burst_index", -1) >= 0,
+                          "hedged_shard": getattr(burst, "hedged_shard",
+                                                  -1)})})
+            reb, refr = loader.rebalancer, loader.topo_refresher
+            for e in (reb.events[n_migrations:] if reb else ()):
+                emit({"phase": "migration", "plane": path, "step": step,
+                      **dataclasses.asdict(e)})
+            for e in (refr.events[n_refreshes:] if refr else ()):
+                emit({"phase": "topo_refresh", "plane": path, "step": step,
+                      **dataclasses.asdict(e)})
+                topo = loader.topo
+                check(torch.equal(topo.page_table.cpu(),
+                                  torch.from_numpy(topo.page_slot)),
+                      f"{path}: the device page table misses the refresh")
+                hbm = np.nonzero(topo.assignment == 0)[0]
+                check(torch.equal(topo.hot_pages().cpu(), torch.from_numpy(
+                    topo._page_rows(hbm))),
+                      f"{path}: the hot pages miss the refresh")
+            n_migrations = reb.n_migrations if reb else 0
+            n_refreshes = refr.n_refreshes if refr else 0
+            if not merged and step + 1 == FAULT["resume_at"]:
+                state = loader.state_dict()
+        launches = dict(_build.LAUNCHES)
+    finally:
+        for p in reversed(patches):
+            p.stop()
+    probe_steps = [s for s in steps[1:] if s["probes"]]
+    median = {k: statistics.median(s[k] for s in probe_steps)
+              for k in ("next_batch_ms", "probe_ms", "stage_host_ms",
+                        "h2d_ms", "gather_ms", "fill_ms", "pricing_ms")}
+    median.update({k: statistics.median(s[k] for s in steps[1:])
+                   for k in ("train_ms", "wall_ms", "prep_time_s",
+                             "exposed_prep_s")})
+    summary = {"phase": "main_path", "plane": path, "steps": steps_n,
+               "launches": launches, "probes": len(probes),
+               "median_of_steps_1_on": median,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    inj = loader.fault_injector
+    if merged:
+        summary.update(hops=hops["n"], hops_after_refresh=hops[
+            "after_refresh"], refreshes=n_refreshes,
+            refresh_cost_s=sum(e.cost_s for e in loader.topo_refresher.events))
+    else:
+        summary.update(
+            migrations=n_migrations,
+            migration_cost_s=loader.rebalancer.total_migration_cost_s,
+            **_fault_counters(loader))
+    emit(summary)
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {path} path")
+    check(launches[gather_name] == steps_n
+          and len(probes) == (2 if merged else steps_n),
+          f"{launches[gather_name]} {gather_name} launches and "
+          f"{len(probes)} probes for {steps_n} steps (one launch a batch, "
+          "one probe a batch or a window expected)")
+    check(launches["segment_mean"] == 2 * steps_n,
+          f"{launches['segment_mean']} segment_mean launches for "
+          f"{steps_n} steps (two a step expected)")
+    if merged:
+        check(launches["frontier_read"] == hops["n"] > 0,
+              f"{launches['frontier_read']} frontier_read launches for "
+              f"{hops['n']} hops (one per hop expected)")
+        check(n_refreshes >= 1, f"{path}: no topology refresh committed")
+        check(hops["after_refresh"] > 0,
+              f"{path}: no hop read the refreshed placement")
+    else:
+        check(n_migrations >= 1, f"{path}: no migration committed")
+        check(inj.n_faulted_bursts >= 1, f"{path}: no faulted burst")
+        check(backstop.router.n_rerouted >= 1, f"{path}: no rerouted read")
+
+    # the CPU twin's priced sequence, float for float
+    t0 = time.perf_counter()
+    twin = _twin_run(np, graph, feats, loader_cfg, steps_n, hot)
+    twin_s = time.perf_counter() - t0
+    for step, (got, want) in enumerate(zip(priced, twin, strict=True)):
+        check(got == want, f"{path} step {step}: priced {got} differs from "
+                           f"the CPU twin's {want}")
+    emit({"phase": "twin", "plane": path, "steps": steps_n,
+          "seconds": twin_s, "priced_equal": True})
+    del loader
+    torch.cuda.empty_cache()
+    if state is not None:
+        resume_cluster(torch, np, work, host_feats, path, loader_cfg, hot,
+                       state, straight_nodes, priced, summary)
+    return launches
+
+
+def _fault_counters(loader) -> dict:
+    """The fault plane's counters: the injector's and the router's."""
+    inj, router = loader.fault_injector, loader.store.tiers[-1].router
+    return dict(faulted_bursts=inj.n_faulted_bursts,
+                hedged_bursts=inj.n_hedged_bursts,
+                hedged_lines=inj.n_hedged_lines,
+                hedge_saving_s=inj.hedge_saving_s,
+                retried_lines=inj.n_retried_lines,
+                failed_over_lines=inj.n_failed_over_lines,
+                rerouted_reads=router.n_rerouted,
+                first_reroute_burst=router.first_reroute_burst)
+
+
+def _same_state(np, a, b) -> bool:
+    """Two loader states equal, numpy values by type, dtype and value."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same_state(np, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and np.array_equal(a, b))
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same_state(np, x, y)
+                                        for x, y in zip(a, b))
+    return type(a) is type(b) and a == b
+
+
+def resume_cluster(torch, np, work, host_feats, path, loader_cfg, hot,
+                   state, straight_nodes, priced, straight) -> None:
+    """The state saved after FAULT["resume_at"] steps goes through
+    `train.checkpoint` and back; a fresh card loader and a fresh CPU twin
+    restored from it deliver the remaining batches: nodes and features
+    equal to the straight run's, each batch through `tiered_gather` and
+    `store_fill` again, and priced prep equal to each other's.  (A restore
+    rebuilds the caches cold and resets the accumulator's telemetry, as
+    the reference does, so resumed prices are those of any loader restored
+    from the state, not the straight run's.)"""
+    import tempfile
+
+    from repro_torch.kernels import _build
+    from repro_torch.train import checkpoint as ckpt
+    graph, _, feats, _, _ = work
+    at = FAULT["resume_at"]
+    check("tier_state" in state and "fault_state" in state,
+          f"{path}: the saved state lacks tier_state or fault_state "
+          f"({sorted(state)})")
+    check(set(state["fault_state"]) == {"injector", "monitor"},
+          f"{path}: fault_state holds {sorted(state['fault_state'])}")
+    marker = {"w": torch.zeros(1)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ckpt.save(tmp, at, marker, {"loader": state})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _, extra = ckpt.restore(tmp, at, marker)
+        loader = _cluster_loader(graph, feats, loader_cfg, DEVICE, hot, at)
+        loader.load_state_dict(extra["loader"])
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    check(_same_state(np, extra["loader"], state),
+          f"{path}: the state restored from the checkpoint differs from "
+          "the saved one")
+    resumed = []
+    _build.reset_launches()
+    for step in range(at, FAULT["steps"]):
+        batch = loader.next_batch()
+        nodes = batch.blocks.all_nodes
+        check(np.array_equal(nodes, straight_nodes[step]),
+              f"{path} resumed step {step}: nodes differ from the straight "
+              "run's")
+        check(torch.equal(batch.features, host_feats[torch.from_numpy(
+            nodes).to(DEVICE)]),
+              f"{path} resumed step {step}: features differ from the "
+              "straight run's")
+        resumed.append(_priced(batch))
+    launches = dict(_build.LAUNCHES)
+    n = FAULT["steps"] - at
+    check(launches["tiered_gather"] == launches["store_fill"] == n,
+          f"{path} resumed: {launches['tiered_gather']} tiered_gather and "
+          f"{launches['store_fill']} store_fill launches for {n} batches "
+          "(one each a batch expected)")
+    twin = _twin_run(np, graph, feats, loader_cfg, n, hot, extra["loader"],
+                     at)
+    for i, (got, want) in enumerate(zip(resumed, twin, strict=True)):
+        check(got == want, f"{path} resumed step {at + i}: priced {got} "
+                           f"differs from the restored twin's {want}")
+    emit({"phase": "resume", "plane": path, "saved_after_step": at,
+          "save_ms": save_ms, "restore_ms": restore_ms,
+          "state_keys": sorted(state), "fault_state": sorted(
+              state["fault_state"]),
+          "launches": launches,
+          "resumed_prep_s": [r[0] for r in resumed],
+          "straight_prep_s": [r[0] for r in priced[at:]],
+          "resumed_fault_counters": _fault_counters(loader),
+          "straight_fault_counters": {k: straight[k] for k in
+                                      _fault_counters(loader)}})
+
+
+def cluster_planes(torch, np) -> dict:
+    """Phase 4d: the fault-and-adaptive plane, then the cluster plane."""
+    import copy
+
+    from repro_torch.core import make_placement, register_placement
+    t0 = time.perf_counter()
+    work = workload(torch, np)
+    graph = work[0]
+    host_feats = torch.from_numpy(work[2]).to(DEVICE)
+    t1 = time.perf_counter()
+    metis = make_placement("metis-lite", CLUSTER["n_hosts"], graph=graph,
+                           num_nodes=graph.num_nodes)
+    metis_s = time.perf_counter() - t1
+
+    @register_placement(METIS_BUILT)
+    def _metis_built(n_shards, **_ctx):
+        check(n_shards == metis.n_shards,
+              f"{METIS_BUILT}: built for {metis.n_shards} hosts, asked for "
+              f"{n_shards}")
+        return copy.deepcopy(metis)
+
+    from repro_torch.core import cut_edge_fraction
+    emit({"phase": "setup", "plane": "cluster planes",
+          "seconds": round(time.perf_counter() - t0, 3),
+          "metis_lite_build_s": metis_s,
+          "metis_lite_cut_edge_fraction": cut_edge_fraction(
+              graph.indptr, graph.indices, metis.table),
+          "metis_lite_part_sizes": np.bincount(
+              metis.table, minlength=CLUSTER["n_hosts"]).tolist()})
+    table = make_placement("degree", FAULT["n_shards"],
+                           degrees=graph.degrees()).table
+    hot = [np.nonzero(table == s)[0] for s in range(FAULT["n_shards"])]
+    by_path = {FAULT_PLANE: cluster_plane_path(torch, np, work, host_feats,
+                                               FAULT_PLANE, hot)}
+    torch.cuda.empty_cache()
+    by_path[CLUSTER_PLANE] = cluster_plane_path(torch, np, work, host_feats,
+                                                CLUSTER_PLANE)
+    emit({"phase": "cluster planes", "seconds": time.perf_counter() - t0})
+    return by_path
+
+
 LM_PATH = "lm-serve"
 
 
@@ -2324,6 +2830,9 @@ PATH_KERNELS = {
     "ladies gids": ("tiered_gather", "store_fill"),
     "ladies gids-device": ("tiered_gather", "store_fill", "cache_bucket",
                            "cache_access"),
+    FAULT_PLANE: ("segment_mean", "tiered_gather", "store_fill"),
+    CLUSTER_PLANE: ("segment_mean", "tiered_gather_unique", "frontier_read",
+                    "store_fill"),
     LM_PATH: ("flash_attention", "flash_combine"),
 }
 
@@ -2417,6 +2926,8 @@ def main() -> int:
     by_path.update(host_planes(torch, np))
     torch.cuda.empty_cache()
     by_path.update(resume_and_samplers(torch, np))
+    torch.cuda.empty_cache()
+    by_path.update(cluster_planes(torch, np))
     torch.cuda.empty_cache()
     lm_gate_f32(torch, np)
     torch.cuda.empty_cache()

@@ -1,11 +1,13 @@
 """Declarative data-plane composition, the port's subset of
 `repro.core.dataplane`: `DataPlaneSpec`, the tier-kind registry with the
-`window_cache`, `device_store`, `constant_buffer`, `storage` and
-`kv_slots` kinds, the paper's host planes (`gids`, `bam`, `mmap`,
-`gids-async`, `pinned-host`) with their merged (`gids-merged*`) and
-topology (`gids-topo*`) presets, the device-resident `gids-device`
-preset, and the serve engine's `serve-kv` preset.  The sharded, host and
-GNN-serving presets wait for their slices (ROADMAP.md Queue 1).
+`window_cache`, `device_store`, `constant_buffer`, `storage`,
+`sharded_storage`, `host_storage` and `kv_slots` kinds, the paper's host
+planes (`gids`, `bam`, `mmap`, `gids-async`, `pinned-host`) with their
+merged (`gids-merged*`), topology (`gids-topo*`), sharded
+(`gids-sharded`, `gids-merged-sharded`) and cluster (`gids-hosts`,
+`gids-hosts-merged`) presets, the device-resident `gids-device` preset,
+and the serve engine's `serve-kv` preset.  The GNN-serving presets wait
+for ROADMAP.md Queue 1 item 9.
 
     plane = DataPlaneSpec.preset("gids").build(graph, features,
                                                device="cuda")
@@ -16,12 +18,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Mapping
 
+import numpy as np
+
 from .constant_buffer import ConstantBuffer
 from .feature_store import TieredFeatureStore
+from .hosts import HostShardTier
+from .sharding import ReplicatedPlacement, make_placement
 from .software_cache import WindowBufferedCache
 from .storage_sim import StorageTimeline
 from .tiers import (ConstantBufferTier, DeviceCacheTier, DeviceStoreTier,
-                    KVSlotTier, StorageTier, Tier)
+                    KVSlotTier, ShardedStorageTier, StorageTier, Tier)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +58,25 @@ class BuildContext:
     cbuf_selection: str = "pagerank"
     seed: int = 0
     device: Any = "cuda"
+    # sharded-storage knobs (multi-SSD namespace)
+    n_shards: int = 1
+    placement: str = "hash"
+    # fault plane: k-way replication (ReplicatedPlacement wrapped around
+    # the placement policy) so failover and hedged reads have somewhere to
+    # go; 1 = unreplicated, bit-identical to the bare policy
+    replication_factor: int = 1
+    # multi-host plane (core/hosts.py): shards become hosts with the
+    # default 100GbE link each; co_partition drives features AND edge pages
+    # off one placement decision
+    n_hosts: int = 1
+    co_partition: bool = True
     # serve engine KV slot pool
     slots: int = 0
     bytes_per_slot: int = 0
 
     _KNOBS = ("cache_lines", "cache_ways", "window_depth", "cbuf_fraction",
-              "cbuf_selection", "seed")
+              "cbuf_selection", "seed", "n_shards", "placement",
+              "replication_factor", "n_hosts", "co_partition")
 
     def absorb(self, config: Any) -> "BuildContext":
         for k in self._KNOBS:
@@ -126,6 +145,53 @@ def _make_storage(ctx: BuildContext) -> Tier:
     return StorageTier(ctx.features)
 
 
+@register_tier_kind("sharded_storage")
+def _make_sharded_storage(ctx: BuildContext) -> Tier:
+    """The storage backstop partitioned across `ctx.n_shards` SSD queues by
+    a registered placement policy (core/sharding.py: hash / range / degree
+    / skewed, plus user registrations); every shard inherits the loader's
+    device spec."""
+    if ctx.features is None:
+        raise ValueError("sharded_storage tier needs features in the "
+                         "BuildContext")
+    degrees = None
+    if ctx.graph is not None and hasattr(ctx.graph, "degrees"):
+        degrees = ctx.graph.degrees()
+    policy = make_placement(ctx.placement, ctx.n_shards,
+                            num_nodes=len(ctx.features), degrees=degrees,
+                            graph=ctx.graph, seed=ctx.seed)
+    if ctx.replication_factor > 1:
+        # k-way replication for the fault plane; validates loudly (k vs
+        # n_shards) at build time rather than at first failover
+        policy = ReplicatedPlacement(policy, ctx.replication_factor)
+    return ShardedStorageTier(ctx.features, policy)
+
+
+@register_tier_kind("host_storage")
+def _make_host_storage(ctx: BuildContext) -> Tier:
+    """The storage backstop partitioned across a CLUSTER (core/hosts.py):
+    each shard is a host — interconnect + local SSD — and the placement
+    decision, co-partitioned by default, drives both the feature rows and
+    the CSR edge pages of every node.  Replication (if any) spreads copies
+    across hosts as failure domains."""
+    if ctx.features is None:
+        raise ValueError("host_storage tier needs features in the "
+                         "BuildContext")
+    degrees = None
+    if ctx.graph is not None and hasattr(ctx.graph, "degrees"):
+        degrees = ctx.graph.degrees()
+    policy = make_placement(ctx.placement, ctx.n_hosts,
+                            num_nodes=len(ctx.features), degrees=degrees,
+                            graph=ctx.graph, seed=ctx.seed)
+    if ctx.replication_factor > 1:
+        # hosts are failure domains: replica j of a row must land on a
+        # DIFFERENT host, so a whole-host outage cannot lose data
+        policy = ReplicatedPlacement(policy, ctx.replication_factor,
+                                     failure_domains=np.arange(ctx.n_hosts))
+    return HostShardTier(ctx.features, policy, graph=ctx.graph,
+                         co_partition=ctx.co_partition, seed=ctx.seed)
+
+
 @register_tier_kind("kv_slots")
 def _make_kv_slots(ctx: BuildContext, slots=None, bytes_per_slot=None) -> Tier:
     slots = ctx.slots if slots is None else slots
@@ -138,12 +204,8 @@ _PRESETS: dict[str, "DataPlaneSpec"] = {}
 
 #: The reference's other presets, by the ROADMAP.md Queue 1 item that
 #: ports them.
-_UNPORTED_PRESETS = {
-    **dict.fromkeys(("gids-sharded", "gids-merged-sharded", "gids-hosts",
-                     "gids-hosts-merged"),
-                    "sharded, host, fault and adaptive planes"),
-    **dict.fromkeys(("serve-gnn", "serve-gnn-shared"), "serve"),
-}
+_UNPORTED_PRESETS = dict.fromkeys(("serve-gnn", "serve-gnn-shared"),
+                                  "item 9, GNN serve")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,7 +288,7 @@ class DataPlaneSpec:
         if name in _UNPORTED_PRESETS:
             raise NotImplementedError(
                 f"data-plane preset {name!r} is not ported yet (ROADMAP.md "
-                f"Queue 1: {_UNPORTED_PRESETS[name]}); ported: "
+                f"Queue 1 {_UNPORTED_PRESETS[name]}); ported: "
                 f"{DataPlaneSpec.names()}")
         try:
             spec = _PRESETS[name]
@@ -357,6 +419,52 @@ DataPlaneSpec.register(DataPlaneSpec(
                 "engine: whole deduplicated windows are staged ahead of "
                 "consumption and each batch's amortized burst share is "
                 "discounted by the compute it overlapped."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-sharded",
+    tiers=(tier("window_cache"), tier("constant_buffer"),
+           tier("sharded_storage")),
+    pricing="overlapped", lookahead=True,
+    description="GIDS over a storage namespace partitioned across n_shards "
+                "SSD queues (BuildContext.n_shards / LoaderConfig.n_shards; "
+                "placement policy from core/sharding.py): each shard drains "
+                "its own queue at its own spec and the batch completes at "
+                "the slowest shard (§4.2 multi-SSD scaling, per-queue)."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-merged-sharded",
+    tiers=(tier("window_cache"), tier("constant_buffer"),
+           tier("sharded_storage")),
+    pricing="overlapped", lookahead=True, merge_execute=True,
+    description="Merged-window execution over the sharded namespace: the "
+                "deduplicated window's storage rows split per shard, 4 KB-"
+                "line coalescing is shard-local ((shard, line) keys), and "
+                "the window prices as per-shard bursts completing at the "
+                "max over shards (straggler telemetry included)."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-hosts",
+    tiers=(tier("window_cache"), tier("constant_buffer"),
+           tier("host_storage")),
+    pricing="overlapped", lookahead=True,
+    description="GIDS over a multi-host cluster (BuildContext.n_hosts; "
+                "core/hosts.py): each shard is a host with its own link + "
+                "local SSD, one co-partitioned placement decision drives "
+                "features and CSR edge pages, and rows requested across "
+                "hosts pay the serving host's link transit on top of its "
+                "local drain (max-over-hosts completion)."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="gids-hosts-merged",
+    tiers=(tier("window_cache"), tier("constant_buffer"),
+           tier("host_storage")),
+    pricing="overlapped", lookahead=True, merge_execute=True,
+    description="Merged-window execution over the host cluster: two-level "
+                "coalescing — the window dedups per host ((shard, line) "
+                "keys), then each host's remote lines ship 4 KB-granular "
+                "over its link — priced as per-host bursts completing at "
+                "the max over hosts.  n_hosts=1 is bit-identical to "
+                "gids-merged."))
 
 DataPlaneSpec.register(DataPlaneSpec(
     name="gids-topo",

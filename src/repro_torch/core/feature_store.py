@@ -10,7 +10,9 @@ constant buffer first) they are `features[node_ids]` staged through a
 pinned buffer and copied to the device.  `gather_merged()` folds the stack
 once over a merged window's unique set; its per-batch rows are the device
 tier's expansions, or else the staged unique rows expanded per batch on
-the device.  Sharded reports wait for the sharded planes.
+the device.  On a sharded namespace the reports carry the per-shard split
+of the storage rows (and, on the host plane, the rows and lines that cross
+a host link), and a merged window coalesces 4 KB lines shard-locally.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from repro_torch import resolve_device
 from .accumulator import MergedWindow
 from .constant_buffer import ConstantBuffer
 from .software_cache import WindowBufferedCache
-from .storage_sim import IO_BYTES, coalesce_lines
+from .storage_sim import (IO_BYTES, coalesce_lines,
+                          coalesce_lines_by_shard)
 from .tiers import (LATENCY_CLASSES, ConstantBufferTier, GatherPlan,
                     HostStager, Tier, build_plan, build_plan_merged)
 
@@ -32,14 +35,28 @@ from .tiers import (LATENCY_CLASSES, ConstantBufferTier, GatherPlan,
 @dataclasses.dataclass(frozen=True)
 class GatherReport:
     """Per-batch tier split.  `bytes_per_row` is the size of ONE feature row
-    (dim * itemsize).  The `n_hbm_hits` / `n_host_hits` / `n_storage` views
-    aggregate tiers by latency class."""
+    (dim * itemsize) — multiply by a count to get transfer bytes.  The
+    `n_hbm_hits` / `n_host_hits` / `n_storage` views aggregate tiers by
+    latency class so pricing and telemetry are stack-shape-agnostic.
+
+    On a sharded storage namespace `shard_rows` carries the per-shard split
+    of this report's storage-bound requests (`n_shards` entries summing to
+    `n_storage`); empty on an unsharded plane.  Per-shard pricing and the
+    straggler/imbalance telemetry key off it.
+
+    On a multi-host plane (core/hosts.py) `remote_rows` additionally splits
+    out, per SERVING shard, the storage rows requested by a different host
+    — the traffic that rides each host's link in
+    `StorageTimeline.price_host_burst`.  Empty everywhere else."""
 
     n_requests: int
     bytes_per_row: int
     tier_names: tuple[str, ...]
     tier_classes: tuple[str, ...]
     tier_counts: tuple[int, ...]
+    n_shards: int = 1
+    shard_rows: tuple[int, ...] = ()
+    remote_rows: tuple[int, ...] = ()
 
     def _class_count(self, latency_class: str) -> int:
         return sum(n for c, n in zip(self.tier_classes, self.tier_counts)
@@ -61,30 +78,66 @@ class GatherReport:
     def redirected(self) -> int:
         return self.n_requests - self.n_storage
 
+    @property
+    def shard_imbalance(self) -> float:
+        """Max-over-mean of the per-shard storage row counts; 1.0 when
+        balanced (or unsharded).  Row-count imbalance — the time-domain
+        version (device-aware) lives on `ShardedBurstResult`."""
+        if not self.shard_rows or sum(self.shard_rows) == 0:
+            return 1.0
+        return max(self.shard_rows) / (sum(self.shard_rows)
+                                       / len(self.shard_rows))
+
     @classmethod
     def from_plan(cls, plan: GatherPlan, bytes_per_row: int) -> "GatherReport":
+        ns = plan.n_shards
+        shard_rows, remote_rows = (), ()
+        if ns > 1:
+            shard_rows = tuple(int(c) for c in plan.shard_counts())
+            if plan.remote is not None:
+                remote_rows = tuple(int(c) for c in plan.remote_counts())
         return cls(
             n_requests=len(plan.node_ids),
             bytes_per_row=bytes_per_row,
             tier_names=tuple(t.name for t in plan.tiers),
             tier_classes=tuple(t.latency_class for t in plan.tiers),
             tier_counts=tuple(int(c) for c in plan.counts()),
+            n_shards=ns, shard_rows=shard_rows, remote_rows=remote_rows,
         )
 
 
 @dataclasses.dataclass(frozen=True)
 class CoalescedReport(GatherReport):
-    """`GatherReport` for a gather executed inside a merged window.  The
-    base fields cover one batch's requests (the per-batch reports) or the
-    window's unique set (the window report that prices the burst); the
-    window-wide merge telemetry is shared by every report of a window:
+    """`GatherReport` for a gather executed inside a merged window.
+
+    The base fields keep their per-scope meaning (`n_requests` /
+    `tier_counts` cover whatever request set this report describes — one
+    batch's requests for the per-batch reports the loader attaches to each
+    `Batch`, the unique set for the window-level report that prices the
+    burst).  The extra fields carry the window-wide merge telemetry, shared
+    by every report of the same window:
 
     window_batches:   batches merged into this window
     window_requests:  total requests across the window (duplicates included)
     n_unique:         unique rows in the window (gathered exactly once)
-    n_duplicate:      window_requests - n_unique
+    n_duplicate:      window_requests - n_unique — storage fetches the
+                      per-batch path would have re-issued
     n_storage_unique: unique rows the fold assigned to the storage tier
-    n_storage_lines:  4 KB IOs after coalescing storage rows sharing a line
+    n_storage_lines:  4 KB IOs after coalescing storage rows that share a
+                      line (< n_storage_unique when rows are narrower than
+                      one line and neighbours were both requested).
+                      Coalescing is SHARD-LOCAL on a sharded namespace —
+                      rows sharing a logical line but living on different
+                      shards are separate IOs
+    shard_lines:      per-shard coalesced IO counts (sums to
+                      n_storage_lines); empty on an unsharded plane.
+                      Pairs with the inherited `shard_rows` to drive the
+                      max-over-shards burst pricing
+    remote_lines:     host planes only — per serving host, the coalesced
+                      4 KB IOs requested by OTHER hosts: the second level
+                      of the two-level merge (dedup per host first, then
+                      line-granular link transit per host-local queue).
+                      Feeds `price_host_burst`'s link term
     """
 
     window_batches: int = 1
@@ -93,6 +146,8 @@ class CoalescedReport(GatherReport):
     n_duplicate: int = 0
     n_storage_unique: int = 0
     n_storage_lines: int = 0
+    shard_lines: tuple[int, ...] = ()
+    remote_lines: tuple[int, ...] = ()
 
     @property
     def dedup_factor(self) -> float:
@@ -197,7 +252,7 @@ class TieredFeatureStore:
         on top expands its rows to every batch on the device; otherwise the
         unique rows are copied to the device and expanded there per batch.
         Storage-bound unique rows sharing a 4 KB line coalesce into single
-        IOs.
+        IOs, shard-locally on a sharded namespace.
 
         Returns `(rows_list, reports, window_report)`: per-batch device
         tensors of rows, per-batch `CoalescedReport`s (batch-local tier
@@ -215,31 +270,74 @@ class TieredFeatureStore:
                 for inv in inverses]
         bytes_per_row = self.feature_dim * self.itemsize
         storage_mask = plan.storage_mask()
+        n_storage_unique = int(storage_mask.sum())
+        n_shards = plan.n_shards
+        # shard-local coalescing: the line key is (shard, line) — rows on
+        # the same logical 4 KB line but different devices are separate IOs
+        shard = plan.shard if plan.shard is not None \
+            else np.where(storage_mask, 0, -1).astype(np.int16)
+        shard_rows, shard_lines = (), ()
+        remote_rows, remote_lines = (), ()
+        if n_shards > 1:
+            shard_rows = tuple(int(c) for c in np.bincount(
+                shard[storage_mask], minlength=n_shards))
+            per_shard = coalesce_lines_by_shard(
+                unique[storage_mask], shard[storage_mask], n_shards,
+                bytes_per_row, io_bytes)
+            shard_lines = tuple(int(c) for c in per_shard)
+            n_storage_lines = int(per_shard.sum())
+            if plan.remote is not None and plan.remote.any():
+                # two-level merge, level 2: of each host's deduplicated
+                # line set, the lines requested by OTHER hosts transit its
+                # link (level 1, the (shard, line) dedup above, already
+                # collapsed duplicate remote rows into one line)
+                rm = storage_mask & plan.remote
+                remote_rows = tuple(int(c) for c in np.bincount(
+                    shard[rm], minlength=n_shards))
+                remote_lines = tuple(int(c) for c in coalesce_lines_by_shard(
+                    unique[rm], shard[rm], n_shards, bytes_per_row,
+                    io_bytes))
+        else:
+            n_storage_lines = coalesce_lines(unique[storage_mask],
+                                             bytes_per_row, io_bytes)
         window_stats = dict(
             window_batches=merged.n_batches,
             window_requests=merged.n_requests,
             n_unique=merged.n_unique,
             n_duplicate=merged.n_duplicate,
-            n_storage_unique=int(storage_mask.sum()),
-            n_storage_lines=coalesce_lines(unique[storage_mask],
-                                           bytes_per_row, io_bytes),
+            n_storage_unique=n_storage_unique,
+            n_storage_lines=n_storage_lines,
+            shard_lines=shard_lines,
+            remote_lines=remote_lines,
         )
         tier_meta = dict(
             bytes_per_row=bytes_per_row,
             tier_names=tuple(t.name for t in plan.tiers),
             tier_classes=tuple(t.latency_class for t in plan.tiers),
+            n_shards=n_shards,
         )
         window_report = CoalescedReport(
             n_requests=merged.n_unique,
             tier_counts=tuple(int(c) for c in plan.counts()),
+            shard_rows=shard_rows, remote_rows=remote_rows,
             **tier_meta, **window_stats)
         reports = []
         for inv in inverses:
             counts = np.bincount(plan.assignment[inv],
                                  minlength=len(plan.tiers))
+            batch_shard_rows, batch_remote_rows = (), ()
+            if n_shards > 1:
+                bsm = shard[inv] >= 0
+                batch_shard_rows = tuple(int(c) for c in np.bincount(
+                    shard[inv][bsm], minlength=n_shards))
+                if plan.remote is not None:
+                    brm = bsm & plan.remote[inv]
+                    batch_remote_rows = tuple(int(c) for c in np.bincount(
+                        shard[inv][brm], minlength=n_shards))
             reports.append(CoalescedReport(
                 n_requests=len(inv),
                 tier_counts=tuple(int(c) for c in counts),
+                shard_rows=batch_shard_rows, remote_rows=batch_remote_rows,
                 **tier_meta, **window_stats))
         self.last_plan = plan
         return rows_list, reports, window_report
@@ -267,21 +365,23 @@ class TieredFeatureStore:
 
     # -- checkpoint ------------------------------------------------------------
     def state_dict(self) -> dict:
-        """Durable per-tier state, keyed by tier name.  Cache contents are
-        deliberately not checkpointed (they rebuild deterministically on
-        resume), and no ported tier has durable state: the sharded
-        placement brings one with ROADMAP.md Queue 1 item 7."""
-        return {}
+        """Durable per-tier state, keyed by tier name.  Only tiers exposing
+        `state_dict` contribute (the sharded backstop's placement
+        assignment); cache contents are deliberately not checkpointed, they
+        rebuild deterministically on resume."""
+        return {t.name: t.state_dict() for t in self.tiers
+                if hasattr(t, "state_dict")}
 
     def load_state_dict(self, state: dict) -> None:
-        """Refuses state for any tier: none of this stack's tiers is
-        stateful (a checkpoint of another plane names its tiers here)."""
-        if state:
-            raise ValueError(
-                f"checkpoint carries state for tiers {sorted(state)} but "
-                f"the stack has no stateful tier "
-                f"({[t.name for t in self.tiers]}) — plane/checkpoint "
-                f"mismatch")
+        by_name = {t.name: t for t in self.tiers}
+        for name, tier_state in state.items():
+            tier = by_name.get(name)
+            if tier is None or not hasattr(tier, "load_state_dict"):
+                raise ValueError(
+                    f"checkpoint carries state for tier {name!r} but the "
+                    f"stack has no such stateful tier "
+                    f"({sorted(by_name)}) — plane/checkpoint mismatch")
+            tier.load_state_dict(tier_state)
 
     def device_rows(self, tier_index: int = 0) -> torch.Tensor:
         """The resident row store of a device tier, as `tiered_gather`

@@ -30,10 +30,22 @@ The sampler is the neighbour sampler or LADIES (`LoaderConfig.sampler`).
 checkpointed run resumes with the same batches; the state is the
 reference's, key for key, and loads into either package's loader.
 
+On a sharded plane (`gids-sharded`, `gids-merged-sharded`) the storage
+backstop is a `ShardedStorageTier`: the feature namespace is partitioned
+across `LoaderConfig.n_shards` queues by a registered placement policy,
+every storage-bound request carries its shard id through the `GatherPlan`,
+and pricing completes each burst at the max over per-shard drains.  On a
+cluster plane (`gids-hosts`, `gids-hosts-merged`) each shard is a host
+with a link, one co-partitioned placement decision drives the feature rows
+and the CSR edge pages, and rows requested across hosts pay the serving
+host's link.  An adaptive placement or topology admission gets its
+feedback controller (core/feedback.py), a `FaultSchedule` its injectors
+(core/faults.py), and replication a failover router.  Shards, hosts,
+faults and feedback change pricing, routing and telemetry, never bytes.
+
 The features of a `Batch` are a tensor on the loader's device; reports and
 priced floats stay host-side Python and numpy, bit-identical to the
-reference.  Sharding, hosts, faults, feedback and tracing wait for later
-slices (ROADMAP.md Queue 1).
+reference.  Tracing waits for the obs slice (ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -50,7 +62,9 @@ from repro_torch.sampling.neighbor import SampledBlocks, host_sample_blocks
 from repro_torch.sampling.tiered import tiered_sample_blocks
 from .accumulator import AccumulatorConfig, DynamicAccessAccumulator
 from .dataplane import DataPlane, DataPlaneSpec
+from .faults import FailoverRouter, FaultInjector
 from .feature_store import GatherReport
+from .feedback import ShardHealthMonitor, ShardRebalancer, TopologyRefresher
 from .prefetch import PrefetchEngine
 from .storage_sim import INTEL_OPTANE, SSDSpec, StorageTimeline
 from .topology import TieredTopologyStore
@@ -76,12 +90,40 @@ class LoaderConfig:
     cbuf_selection: str = "pagerank"
     target_efficiency: float = 0.95
     n_ssd: int = 1
+    # sharded-storage planes (gids-sharded / gids-merged-sharded): how many
+    # SSD shards partition the feature namespace, and which registered
+    # placement policy (core/sharding.py) decides node -> shard
+    n_shards: int = 1
+    placement: str = "hash"
+    # multi-host planes (gids-hosts / gids-hosts-merged; core/hosts.py):
+    # the storage backstop partitions across n_hosts hosts, each with its
+    # own link and local SSD.  co_partition=True drives a node's feature
+    # rows AND its CSR edge pages off one placement decision; False
+    # stripes the adjacency independently.  Every host has the default
+    # 100GbE link
+    n_hosts: int = 1
+    co_partition: bool = True
     # topology plane: fraction of the CSR edge pages resident in device
     # memory / pinned host memory (the rest is storage-backed), and the
     # admission policy ranking pages into the budgets (core/topology.py)
     topo_admission: str = "degree"
     topo_gpu_fraction: float = 0.25
     topo_host_fraction: float = 0.5
+    # adaptive data plane (core/feedback.py; placement="adaptive" and/or
+    # topo_admission="adaptive"): every `rebalance_interval` priced bursts
+    # the controllers fold measured touches and consider a re-placement,
+    # committing only when the modelled saving over `migration_horizon`
+    # future bursts beats the move's own priced IO cost, which is then
+    # amortized into later batches' prep
+    rebalance_interval: int = 8
+    imbalance_threshold: float = 1.25
+    migration_horizon: int = 64
+    # fault plane (core/faults.py): a seeded FaultSchedule injected into
+    # every priced storage burst; None prices bit-identically to the
+    # fault-free plane.  replication_factor wraps the placement in k-way
+    # ReplicatedPlacement so failover and hedges have replica queues
+    fault_schedule: "object | None" = None
+    replication_factor: int = 1
     seed: int = 0
 
     def __post_init__(self) -> None:
@@ -142,6 +184,23 @@ class GIDSDataLoader:
                                    n_ssd=cfg.n_ssd,
                                    max_merge_iters=max(cfg.window_depth, 8)))
         self.timeline = StorageTimeline(ssd, cfg.n_ssd)
+        # a sharded backstop prices per shard queue: hand the timeline the
+        # per-shard device specs (a spec-less tier inherits this loader's
+        # device on every shard)
+        backstop = self.store.tiers[-1]
+        if hasattr(backstop, "resolve_shard_specs"):
+            if getattr(backstop, "n_shards", 1) > 1 and cfg.n_ssd > 1:
+                raise ValueError(
+                    f"n_ssd={cfg.n_ssd} with a {backstop.n_shards}-shard "
+                    "storage tier: the legacy pooled-queue multiplier and "
+                    "per-shard queues model the same devices twice — on a "
+                    "sharded plane set n_shards (one queue per SSD) and "
+                    "leave n_ssd=1")
+            self.timeline.shard_specs = backstop.resolve_shard_specs(ssd)
+        # a cluster backstop (core/hosts.py) also needs each host's link:
+        # sharded bursts then price through price_host_burst
+        if hasattr(backstop, "resolve_hosts"):
+            self.timeline.host_specs = backstop.resolve_hosts(ssd)
         # topology plane: sampling reads a tiered adjacency store and is
         # priced per hop; the store owns its own StorageTimeline (the
         # edge-page namespace drains separate queues)
@@ -154,11 +213,73 @@ class GIDSDataLoader:
                     "scores whole frontier columns, not page-local "
                     "adjacency reads, so its storage traffic is not "
                     "page-priceable")
+            if hasattr(backstop, "topology_page_shard") \
+                    and backstop.n_shards > 1:
+                # co-partitioned cluster: the feature backstop's own host
+                # table places the CSR edge pages, one placement decision
+                # for both namespaces
+                topo_kwargs = dict(
+                    n_shards=backstop.n_shards,
+                    page_shard=backstop.topology_page_shard(),
+                    shard_specs=backstop.resolve_shard_specs(ssd))
+            else:
+                topo_kwargs = dict(n_shards=cfg.n_shards,
+                                   placement=cfg.placement)
             self.topo = TieredTopologyStore.from_graph(
                 graph, admission=cfg.topo_admission,
                 gpu_fraction=cfg.topo_gpu_fraction,
                 host_fraction=cfg.topo_host_fraction,
-                ssd=ssd, n_ssd=cfg.n_ssd, seed=cfg.seed, device=device)
+                ssd=ssd, n_ssd=cfg.n_ssd, seed=cfg.seed, device=device,
+                **topo_kwargs)
+        # adaptive data plane: an adaptive placement or admission gets its
+        # feedback controller; both tick once per priced burst in
+        # _feedback_step, and a static plane carries None
+        self.rebalancer: ShardRebalancer | None = None
+        if hasattr(getattr(backstop, "placement", None), "plan_rebalance"):
+            self.rebalancer = ShardRebalancer(
+                backstop, self.timeline,
+                bytes_per_row=features.shape[1] * features.dtype.itemsize,
+                interval=cfg.rebalance_interval,
+                threshold=cfg.imbalance_threshold,
+                horizon=cfg.migration_horizon)
+        self.topo_refresher: TopologyRefresher | None = None
+        if self.topo is not None and self.topo.touches is not None:
+            self.topo_refresher = TopologyRefresher(
+                self.topo, interval=cfg.rebalance_interval,
+                horizon=cfg.migration_horizon)
+        # fault plane: schedule-driven burst re-pricing, per-shard health
+        # telemetry and replica failover routing; all None on a fault-free,
+        # unreplicated plane, which keeps every other preset bit-identical
+        self.fault_injector: FaultInjector | None = None
+        self.health: ShardHealthMonitor | None = None
+        n_queue_shards = getattr(backstop, "n_shards", 1)
+        if cfg.replication_factor > 1 \
+                and not hasattr(backstop, "placement"):
+            raise ValueError(
+                f"replication_factor={cfg.replication_factor} needs a "
+                "sharded storage backstop (a *-sharded data plane with "
+                "n_shards >= 2) — the unsharded plane has no replica "
+                "queues to fail over to")
+        if cfg.fault_schedule is not None:
+            self.fault_injector = FaultInjector(
+                cfg.fault_schedule, n_queue_shards,
+                replication=cfg.replication_factor)
+            self.timeline.injector = self.fault_injector
+            if self.topo is not None:
+                # the topology namespace drains its own queues, so it gets
+                # its own injector (an independent burst counter) over the
+                # same schedule
+                self.topo.timeline.injector = FaultInjector(
+                    cfg.fault_schedule, self.topo.n_shards)
+        if n_queue_shards > 1 and (cfg.fault_schedule is not None
+                                   or cfg.replication_factor > 1):
+            self.health = ShardHealthMonitor(n_queue_shards)
+            if self.rebalancer is not None:
+                self.rebalancer.monitor = self.health
+        if cfg.replication_factor > 1:
+            backstop.router = FailoverRouter(
+                backstop.placement, monitor=self.health,
+                injector=self.fault_injector)
         self._lookahead: deque[tuple[dict, SampledBlocks]] = deque()
         self._win_idx = 0   # lookahead entries already pushed to the window
         # a merged plane stages a whole executed window here, each batch
@@ -236,12 +357,32 @@ class GIDSDataLoader:
         self.accumulator.update(report.n_requests, report.redirected)
         outstanding = self.accumulator.outstanding(blocks.num_requests)
         gather_s = self.plane.price(self.timeline, report, outstanding)
+        t = gather_s + self._feedback_step(blocks.all_nodes, None)
         # a topology plane priced the sampling stage when the blocks were
         # drawn (plan_next); prep covers both
         sample_s = float(getattr(blocks, "sample_time_s", 0.0))
         return Batch(blocks=blocks, features=rows, report=report,
-                     prep_time_s=gather_s + sample_s,
+                     prep_time_s=t + sample_s,
                      merge_depth=plan.merge_depth, sample_time_s=sample_s)
+
+    def _feedback_step(self, node_ids: np.ndarray,
+                       counts: np.ndarray | None) -> float:
+        """One adaptive-plane tick per priced burst: record the burst's
+        measured node touches, let each controller consider a (priced)
+        re-placement, and return the burst's amortized share of any
+        committed migration cost, folded into prep.  A static plane returns
+        0.0 without touching a thing."""
+        charge = 0.0
+        if self.health is not None \
+                and self.timeline.shard_burst is not None:
+            # the monitor sees every priced burst's per-shard drains
+            self.health.observe(self.timeline.shard_burst)
+        if self.rebalancer is not None:
+            self.rebalancer.observe(node_ids, counts)
+            charge += self.rebalancer.step()
+        if self.topo_refresher is not None:
+            charge += self.topo_refresher.step()
+        return charge
 
     def plan_window(self) -> list[BatchPlan]:
         """Stage 1 for a whole merged window: plan `merge_depth`
@@ -267,7 +408,12 @@ class GIDSDataLoader:
         # one telemetry update per window: the unique split
         self.accumulator.update(window_report.n_requests,
                                 window_report.redirected)
-        burst_s = self.timeline.price_merged_burst(window_report)
+        gather_s = self.timeline.price_merged_burst(window_report)
+        # the window is one priced burst, so it is one feedback tick over
+        # the unique request set with its window multiplicity; a migration
+        # charge amortizes across the window's batches like the burst
+        burst_s = gather_s + self._feedback_step(
+            merged.unique_nodes, merged.batch_multiplicity())
         prep = burst_s / len(plans)
         out = []
         for p, rows, rep in zip(plans, rows_list, reports, strict=True):
@@ -302,30 +448,52 @@ class GIDSDataLoader:
     def state_dict(self) -> dict:
         """The resume point: the sampler state before the oldest batch not
         yet consumed (a prefetched batch, then a batch of an executed merged
-        window, then a sampled-ahead batch, else the live RNG).
-        JSON-serialisable, equal to the reference's.  No ported tier has
-        durable state, so no `tier_state` is attached (the sharded
-        placement brings one with ROADMAP.md Queue 1 item 7)."""
+        window, then a sampled-ahead batch, else the live RNG), with the
+        durable tier state (`tier_state`: the sharded backstop's placement)
+        and the fault plane's state (`fault_state`: the injectors' burst
+        counters and the health monitor).  Equal to the reference's; it is
+        JSON-serialisable when it carries neither, whose tables and EMAs are
+        numpy arrays."""
         if self.prefetch is not None:
             snap = self.prefetch.oldest_snapshot()
             if snap is not None:
-                return dict(snap)
+                return self._with_tier_state(dict(snap))
         if self._merged_ready:
             # mid-window: the oldest executed-but-unconsumed batch's snapshot
-            return dict(self._merged_ready[0][0])
+            return self._with_tier_state(dict(self._merged_ready[0][0]))
         if self._lookahead:
-            return dict(self._lookahead[0][0])
-        return {"rng": self.rng.bit_generator.state,
-                "requests_per_iter": self._requests_per_iter}
+            return self._with_tier_state(dict(self._lookahead[0][0]))
+        return self._with_tier_state(
+            {"rng": self.rng.bit_generator.state,
+             "requests_per_iter": self._requests_per_iter})
+
+    def _with_tier_state(self, state: dict) -> dict:
+        """Attach the durable tier state and the fault state to a sampler
+        snapshot.  Cache contents rebuild deterministically on resume and
+        are deliberately absent.  Both are captured at checkpoint time, not
+        when the snapshot's batch was staged, as the reference does."""
+        tier_state = self.store.state_dict()
+        if tier_state:
+            state["tier_state"] = tier_state
+        # the injector's burst counter (what retry and hedge decisions are
+        # a function of) and the health EMAs must resume, so that a
+        # mid-brownout checkpoint replays the same recovery choices
+        fault_state = {}
+        if self.fault_injector is not None:
+            fault_state["injector"] = self.fault_injector.state_dict()
+        if self.topo is not None and self.topo.timeline.injector is not None:
+            fault_state["topo_injector"] = \
+                self.topo.timeline.injector.state_dict()
+        if self.health is not None:
+            fault_state["monitor"] = self.health.state_dict()
+        if fault_state:
+            state["fault_state"] = fault_state
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         """Resume from `state_dict()` (of either package): afterwards the
         loader delivers the batches a freshly built loader fed the same
         state would, bit for bit."""
-        if "fault_state" in state:
-            raise NotImplementedError(
-                "the checkpoint carries fault-plane state, and the port has "
-                "no fault plane yet (ROADMAP.md Queue 1 item 7)")
         # reset the tiers first: that waits for the copies still in flight
         # out of the pinned staging buffers, and returns every cache, its
         # row store and its metadata to the built state
@@ -340,8 +508,41 @@ class GIDSDataLoader:
         self._merged_ready.clear()
         if "tier_state" in state:
             self.store.load_state_dict(state["tier_state"])
+        fault_state = state.get("fault_state", {})
+        if "injector" in fault_state:
+            if self.fault_injector is None:
+                raise ValueError(
+                    "checkpoint carries fault-injector state but this "
+                    "plane has no fault_schedule — resume with the same "
+                    "LoaderConfig.fault_schedule or recovery decisions "
+                    "diverge from the checkpointed run")
+            self.fault_injector.load_state_dict(fault_state["injector"])
+        elif self.fault_injector is not None:
+            self.fault_injector.reset()
+        topo_injector = None if self.topo is None \
+            else self.topo.timeline.injector
+        if "topo_injector" in fault_state:
+            if topo_injector is None:
+                raise ValueError(
+                    "checkpoint carries a topology-plane fault-injector "
+                    "state but this plane has none — resume with the same "
+                    "fault_schedule on the same topology preset")
+            topo_injector.load_state_dict(fault_state["topo_injector"])
+        elif topo_injector is not None:
+            topo_injector.reset()
+        if "monitor" in fault_state:
+            if self.health is None:
+                raise ValueError(
+                    "checkpoint carries shard-health state but this plane "
+                    "has no monitor (no fault_schedule / replication)")
+            self.health.load_state_dict(fault_state["monitor"])
+        elif self.health is not None:
+            self.health.reset()
         # and the merge-depth EMA, so the resumed loader makes the fresh
-        # loader's decisions.  The timelines keep no cross-burst telemetry
-        # until the sharded bursts (ROADMAP.md Queue 1 item 7), and the
-        # tracer's reset comes with the obs slice (item 8)
+        # loader's decisions, and the timelines' cross-burst telemetry, so
+        # it never reports the pre-restore run's last burst as its own
+        # (the tracer's reset comes with the obs slice, item 8)
         self.accumulator.reset_telemetry()
+        self.timeline.reset_telemetry()
+        if self.topo is not None:
+            self.topo.timeline.reset_telemetry()

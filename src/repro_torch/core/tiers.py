@@ -11,9 +11,14 @@ gather plan that folds a tier stack over one batch.
                        window goes through `tiered_gather_unique`
   ConstantBufferTier — `ConstantBuffer` (pinned host memory)
   StorageTier        — the storage backstop (always hits)
+  ShardedStorageTier — the backstop partitioned across `n_shards` queues by
+                       a `PlacementPolicy` (core/sharding.py); per-request
+                       shard ids feed the per-shard burst pricing.  Shards
+                       change pricing and telemetry, never bytes: the rows
+                       still come from the device tiers or the host
   KVSlotTier         — the serve engine's KV-cache slot pool
 
-The tenant and sharded tiers wait for their slices (ROADMAP.md Queue 1).
+The serve plane's tenant tier waits for ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -484,6 +489,81 @@ class StorageTier(_TierBase):
         return np.asarray(self.features[node_ids])
 
 
+class ShardedStorageTier(StorageTier):
+    """The storage backstop partitioned across `n_shards` independent SSD
+    queues by a `PlacementPolicy` (core/sharding.py).
+
+    The *bytes* are unchanged — one logical feature namespace, every probe
+    hits — but each storage-bound request now carries the shard whose queue
+    it drains through (`shard_of`, threaded into `GatherPlan.shard` by
+    `build_plan`).  Pricing then completes the batch at the MAX over shards
+    (`storage_sim.price_sharded_burst`), which is what makes multi-SSD
+    scaling and placement skew measurable.
+
+    `specs` may be one `SSDSpec` (homogeneous array), a sequence of
+    `n_shards` specs (heterogeneous — e.g. one Optane + three 980Pros, the
+    straggler story), or None (every shard inherits the loader's device
+    spec).
+    """
+
+    def __init__(self, features: np.ndarray, placement,
+                 specs=None, name: str = "sharded-storage"):
+        super().__init__(features, name=name)
+        self.placement = placement
+        if specs is not None and not isinstance(specs, (list, tuple)):
+            specs = (specs,) * placement.n_shards
+        if specs is not None:
+            specs = tuple(specs)
+            if len(specs) != placement.n_shards:
+                raise ValueError(
+                    f"{len(specs)} shard specs for {placement.n_shards} "
+                    "shards — pass one spec per shard (or a single spec "
+                    "to replicate)")
+        self.specs = specs
+        # fault plane: a FailoverRouter (core/faults.py) rewrites the
+        # placement decision at plan time — reads off dead/degraded shards
+        # go to a live replica.  None (the default) keeps shard_of the
+        # bare placement, bit-identical to the unrouted plane.
+        self.router = None
+
+    @property
+    def n_shards(self) -> int:
+        return self.placement.n_shards
+
+    def shard_of(self, node_ids: np.ndarray) -> np.ndarray:
+        """Per-request shard id (the placement decision), (B,) int16.
+        With a router wired, the decision is failover-adjusted — same
+        bytes, healthier queue."""
+        primary = np.asarray(self.placement.shard_of(node_ids), np.int16)
+        if self.router is None:
+            return primary
+        return np.asarray(self.router.route(node_ids, primary), np.int16)
+
+    def resolve_shard_specs(self, default_spec) -> tuple:
+        """Per-shard `SSDSpec`s, falling back to `default_spec` (the
+        loader's device) when the tier was built spec-less."""
+        if self.specs is not None:
+            return self.specs
+        return (default_spec,) * self.n_shards
+
+    # -- checkpoint -----------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Shard-assignment state for checkpoint round-trip.  Built-in
+        policies are deterministic, but the table-based ones (`degree`) are
+        exactly what an online rebalancer would mutate — resume restores the
+        assignment rather than trusting reconstruction."""
+        return {"n_shards": self.n_shards,
+                "placement": self.placement.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state.get("n_shards", self.n_shards) != self.n_shards:
+            raise ValueError(
+                f"checkpoint has {state.get('n_shards')} shards, tier has "
+                f"{self.n_shards} — shard count is namespace layout, not "
+                "runtime state")
+        self.placement.load_state_dict(state["placement"])
+
+
 class KVSlotTier(_TierBase):
     """KV-cache slot pool as a data-plane tier (serve engine).
 
@@ -546,15 +626,29 @@ class KVSlotTier(_TierBase):
 
 @dataclasses.dataclass
 class GatherPlan:
-    """Per-request tier assignment for one batch (or one merged window's
-    unique set): `assignment[i]` indexes the tier that serves request i.
-    Folding guarantees a partition.  Storage shards (`shard`, `remote`)
-    wait for the sharded planes (ROADMAP.md Queue 1); the storage namespace
-    is one shard."""
+    """Per-request tier assignment for one batch: `assignment[i]` indexes the
+    tier stack entry that serves request i.  Folding guarantees a partition
+    (`is_partition`); `kernel_slots` renders the device-tier portion as the
+    slot array the `tiered_gather` kernel consumes.
+
+    `shard[i]` is the storage shard serving request i: the placement
+    decision of a `ShardedStorageTier`, 0 for a single-queue storage tier,
+    and -1 iff the serving tier is not storage-class (`shard_consistent`
+    pins that invariant).  Shard ids drive shard-local 4 KB-line coalescing
+    and the max-over-shards burst pricing.
+
+    `remote[i]` (host planes only — core/hosts.py) marks requests whose
+    serving host differs from the host that REQUESTED them; those rows'
+    lines additionally transit the serving host's link in
+    `StorageTimeline.price_host_burst`.  None on single-host planes —
+    remote-ness is a pricing/telemetry annotation, never a routing one, so
+    gathered bytes cannot depend on it."""
 
     node_ids: np.ndarray
     assignment: np.ndarray          # (B,) int8 index into `tiers`
     tiers: tuple
+    shard: np.ndarray | None = None  # (B,) int16; -1 = not storage-bound
+    remote: np.ndarray | None = None  # (B,) bool; True = crosses a host link
 
     def counts(self) -> np.ndarray:
         return np.bincount(self.assignment, minlength=len(self.tiers))
@@ -574,16 +668,44 @@ class GatherPlan:
 
     @property
     def n_shards(self) -> int:
-        """Shard count of the storage namespace: 1 until the sharded planes
-        are ported."""
-        return 1
+        """Shard count of the stack's storage namespace (1 when unsharded)."""
+        return max((getattr(t, "n_shards", 1) for t in self.tiers), default=1)
+
+    def shard_consistent(self) -> bool:
+        """Shard ids are defined exactly where the serving tier is
+        storage-class, and always index a real shard."""
+        if self.shard is None:
+            return not self.storage_mask().any()
+        sm = self.storage_mask()
+        s = self.shard
+        return bool(((s[sm] >= 0) & (s[sm] < self.n_shards)).all()
+                    and (s[~sm] == -1).all())
+
+    def shard_counts(self) -> np.ndarray:
+        """Storage-bound requests per shard, (n_shards,)."""
+        if self.shard is None:
+            return np.zeros(self.n_shards, np.int64)
+        sm = self.shard >= 0
+        return np.bincount(self.shard[sm], minlength=self.n_shards)
+
+    def remote_counts(self) -> np.ndarray:
+        """Cross-host storage requests per SERVING shard, (n_shards,) —
+        the rows each host ships over its link (zeros off host planes)."""
+        if self.shard is None or self.remote is None:
+            return np.zeros(self.n_shards, np.int64)
+        rm = self.remote & (self.shard >= 0)
+        return np.bincount(self.shard[rm], minlength=self.n_shards)
 
     def kernel_slots(self, tier_index: int = 0) -> np.ndarray:
         """Slot array for `ops.tiered_gather`: requests served by the device
         tier carry their cache line, everything else -1 (staged row i).
-        Slots resolve against the tier's post-probe metadata, so a hit whose
-        line a later fill of the same batch took resolves to -1 and is
-        served from the staged path."""
+
+        Slots are resolved against the tier's *post-probe* metadata — the
+        same state `TieredFeatureStore.device_rows` materializes — so the
+        (slots, rows) pair is always coherent.  A hit whose line was evicted
+        later in the same batch (a colliding fill in its set) resolves to -1
+        and is demoted to the staged path: the gathered bytes stay correct,
+        at worst the pricing report counted one extra HBM hit."""
         tier = self.tiers[tier_index]
         slots = np.full(len(self.node_ids), -1, np.int32)
         m = self.mask(tier_index)
@@ -627,8 +749,28 @@ def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray,
             f"tier stack {[t.name for t in tiers]} left "
             f"{int(unclaimed.sum())} of {n} requests unserved — the stack "
             "must end in a storage backstop")
+    # storage-bound requests carry the serving tier's shard decision; a
+    # single-queue storage tier is shard 0, redirected requests stay -1
+    shard = np.full(n, -1, np.int16)
+    remote = None
+    for ti, tier in enumerate(tiers):
+        if tier.latency_class != "storage":
+            continue
+        m = assignment == ti
+        if not m.any():
+            continue
+        if hasattr(tier, "shard_of"):
+            shard[m] = tier.shard_of(node_ids[m])
+            if hasattr(tier, "remote_mask"):
+                # host-level backstop: stamp which requests the serving
+                # host ships over its link (requester != server)
+                if remote is None:
+                    remote = np.zeros(n, bool)
+                remote[m] = tier.remote_mask(node_ids[m], shard[m])
+        else:
+            shard[m] = 0
     return GatherPlan(node_ids=node_ids, assignment=assignment,
-                      tiers=tuple(tiers))
+                      tiers=tuple(tiers), shard=shard, remote=remote)
 
 
 def build_plan_merged(tiers: Sequence[Tier], unique_nodes: np.ndarray,

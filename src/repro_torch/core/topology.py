@@ -7,7 +7,13 @@ across three tiers,
   storage  storage-backed CSR pages, priced through `StorageTimeline`
 
 placed by an admission policy from a registry (`degree`, `range`,
-`random`).  `hop_report` prices one sampling hop's edge reads from its
+`random`, and `adaptive`: `degree` at build, then re-admitted online from
+the measured page touches of every hop by `plan_refresh` /
+`commit_refresh`, which the `TopologyRefresher` of core/feedback.py
+drives).  With `n_shards > 1` the storage pages stripe across independent
+queues, by the placement registry of core/sharding.py or by the host
+table a co-partitioned cluster passes in (`page_shard`), and price at the
+max over per-shard drains.  `hop_report` prices one sampling hop's edge reads from its
 unique pages per tier; `frontier_gather` is the device data path: one
 `frontier_read` kernel reads each position's word where its tier keeps it,
 from the hot pages in device memory or, in place over PCIe, from the
@@ -18,10 +24,9 @@ same pinned adjacency as host-tier words (in this port they were always
 host memory, never a storage read).  What a storage read costs stays the
 priced `StorageTimeline` time of `hop_report`, which is unchanged.
 
-Assignments, page slots, scores, reports and priced times are bit-identical
-to the reference.  The `adaptive` admission (`TouchTable`), sharded page
-queues, fault injectors and the metrics hook wait for their slices
-(ROADMAP.md Queue 1: sharded, host, fault and adaptive planes; obs).
+Assignments, page slots, scores, reports, refreshes and priced times are
+bit-identical to the reference.  The metrics hook waits for the
+observability slice (ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -33,14 +38,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from .storage_sim import (INTEL_OPTANE, IO_BYTES, SSDSpec, StorageTimeline,
-                          host_sampling_hop_time)
+from .feedback import TouchTable
+from .sharding import make_placement
+from .storage_sim import (HBM_BW, INTEL_OPTANE, IO_BYTES, PCIE_GEN4_BW,
+                          SSDSpec, StorageTimeline, host_sampling_hop_time)
 
 #: Topology tier indices, fastest first (aligned with `tiers.LATENCY_CLASSES`).
 TOPO_TIER_NAMES = ("hbm", "host", "storage")
 TIER_HBM, TIER_HOST, TIER_STORAGE = 0, 1, 2
-
-_UNPORTED = "ROADMAP.md Queue 1: sharded, host, fault and adaptive planes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +58,8 @@ class TopologyGatherReport:
     pages_by_tier:  unique 4 KB edge pages touched, split (hbm, host,
                     storage); the storage entry is the hop's coalesced IOs
     reads_by_tier:  the same edge reads split by serving tier
-    shard_pages:    per-shard storage pages; empty (unsharded)
+    shard_pages:    per-shard storage-page counts on a sharded namespace
+                    (sums to `n_storage_ios`); empty when unsharded
     time_s:         modelled hop time (`StorageTimeline.price_topology_hop`)
     """
 
@@ -102,10 +108,6 @@ def admission_names() -> tuple[str, ...]:
 def make_admission(name: str, n_pages: int, *, gpu_pages: int,
                    host_pages: int, page_score: np.ndarray | None = None,
                    seed: int = 0) -> np.ndarray:
-    if name == "adaptive":
-        raise NotImplementedError(
-            f"admission 'adaptive' (TouchTable feedback) is not ported yet "
-            f"({_UNPORTED})")
     try:
         factory = _ADMISSIONS[name]
     except KeyError:
@@ -139,6 +141,20 @@ def _degree_admission(n_pages: int, *, gpu_pages: int, host_pages: int,
     if page_score is None:
         raise ValueError("degree admission needs per-page scores (build the "
                          "store via TieredTopologyStore.from_graph)")
+    order = np.argsort(-np.asarray(page_score), kind="stable")
+    return _fill_by_order(order, n_pages, gpu_pages, host_pages)
+
+
+@register_admission("adaptive")
+def _adaptive_admission(n_pages: int, *, gpu_pages: int, host_pages: int,
+                        page_score=None, **_ctx) -> np.ndarray:
+    """Feedback-seeded admission: identical to `degree` at build time (same
+    static expected-touch prior, same stable ranking), then re-ranked online
+    from measured touches via `TieredTopologyStore.plan_refresh` — a store
+    built with this policy carries a `TouchTable` fed by every hop."""
+    if page_score is None:
+        raise ValueError("adaptive admission needs per-page scores (build "
+                         "the store via TieredTopologyStore.from_graph)")
     order = np.argsort(-np.asarray(page_score), kind="stable")
     return _fill_by_order(order, n_pages, gpu_pages, host_pages)
 
@@ -188,17 +204,19 @@ class TieredTopologyStore:
 
     `assignment[p]` is the tier of edge page `p` (words
     `indices[p*page_words : (p+1)*page_words]`); `page_slot[p]` is its row
-    in the compacted hot-page array, -1 off the HBM tier.  The store owns
-    its own `StorageTimeline`: the edge-page namespace drains its own
-    queues.  `device` is where the hot pages and `page_table` live and the
-    kernel runs; the adjacency that cold words are read from stays on the
-    host (one pinned copy on CUDA).
+    in the compacted hot-page array, -1 off the HBM tier; `page_shard[p]`
+    the queue a storage-resident page drains through (all zeros when
+    `n_shards == 1`).  The store owns its own `StorageTimeline`: the
+    edge-page namespace drains its own queues.  `device` is where the hot
+    pages and `page_table` live and the kernel runs; the adjacency that
+    cold words are read from stays on the host (one pinned copy on CUDA).
     """
 
     def __init__(self, graph, assignment: np.ndarray, *,
                  page_bytes: int = IO_BYTES, policy: str = "degree",
                  ssd: SSDSpec = INTEL_OPTANE, n_ssd: int = 1,
-                 device: str | torch.device = "cuda"):
+                 page_shard: np.ndarray | None = None,
+                 shard_specs=None, device: str | torch.device = "cuda"):
         self.graph = graph
         self.indptr = graph.indptr
         self.indices = graph.indices
@@ -212,50 +230,95 @@ class TieredTopologyStore:
                              f"match {self.n_pages} edge pages")
         self.assignment = assignment
         self.policy = policy
-        self.timeline = StorageTimeline(ssd, n_ssd)
-        gpu_pages = np.nonzero(self.assignment == TIER_HBM)[0]
-        self.page_slot = np.full(self.n_pages, -1, np.int32)
-        self.page_slot[gpu_pages] = np.arange(len(gpu_pages), dtype=np.int32)
-        # the data path, built once: the page table and the hot pages on
-        # the device; cold words are read by position from the host
-        # adjacency (one pinned copy on CUDA, read in place)
-        self.page_table = torch.from_numpy(self.page_slot).to(self.device)
-        self._hot_pages_dev = torch.from_numpy(
-            self._page_rows(gpu_pages)).to(self.device)
+        self.page_shard = (np.zeros(self.n_pages, np.int16)
+                           if page_shard is None
+                           else np.asarray(page_shard, np.int16))
+        self.n_shards = (len(shard_specs) if shard_specs
+                         else int(self.page_shard.max(initial=0)) + 1)
+        self.timeline = StorageTimeline(ssd, n_ssd, shard_specs=shard_specs)
         words = torch.from_numpy(self.indices)
         self._host_words = (words.pin_memory()
                             if self.device.type == "cuda" else words)
         # reused per-call buffers on CUDA (pinned in/out, device in/out)
         self._io: tuple[torch.Tensor, ...] = ()
+        self._place_hot_pages()
+        # the adaptive policy learns: every hop's measured page touches feed
+        # this table, and plan_refresh/commit_refresh re-admit by it
+        self.touches = (TouchTable(self.n_pages)
+                        if policy == "adaptive" else None)
+
+    def _place_hot_pages(self) -> None:
+        """The page slots of the current assignment, and the data path
+        built from them: the page table and the hot pages on the device
+        (cold words are read by position from the host adjacency)."""
+        gpu_pages = np.nonzero(self.assignment == TIER_HBM)[0]
+        self.page_slot = np.full(self.n_pages, -1, np.int32)
+        self.page_slot[gpu_pages] = np.arange(len(gpu_pages), dtype=np.int32)
+        self.page_table = torch.from_numpy(self.page_slot).to(self.device)
+        self._hot_pages_dev = torch.from_numpy(
+            self._page_rows(gpu_pages)).to(self.device)
 
     # -- construction ----------------------------------------------------------
     @classmethod
     def from_graph(cls, graph, *, admission: str = "degree",
                    gpu_fraction: float = 0.25, host_fraction: float = 0.5,
                    page_bytes: int = IO_BYTES, ssd: SSDSpec = INTEL_OPTANE,
-                   n_ssd: int = 1, n_shards: int = 1, seed: int = 0,
-                   device: str | torch.device = "cuda"
+                   n_ssd: int = 1, n_shards: int = 1,
+                   placement: str = "hash", shard_specs=None,
+                   page_shard: np.ndarray | None = None,
+                   seed: int = 0, device: str | torch.device = "cuda"
                    ) -> "TieredTopologyStore":
         """Budgeted build: `gpu_fraction` / `host_fraction` of the edge pages
         go to the HBM / pinned-host tiers (clipped to a partition), placed by
-        the registered `admission` policy; the rest is storage-backed."""
-        if n_shards != 1:
-            raise NotImplementedError(
-                f"a {n_shards}-shard topology store is not ported yet "
-                f"({_UNPORTED})")
+        the registered `admission` policy; the remainder is storage-backed.
+        With `n_shards > 1` the storage pages stripe across SSD queues via
+        the placement registry shared with the feature plane
+        (core/sharding.py) — the `degree` placement reuses the admission
+        page scores as its hotness signal.
+
+        An explicit `page_shard` overrides the placement registry: the
+        co-partitioned host plane (core/hosts.py) passes the feature tier's
+        own per-page host assignment here, so ONE placement decision drives
+        both namespaces instead of two independent stripes."""
         page_words, n_pages = _page_geometry(graph.indices, page_bytes)
         gpu_pages = int(np.clip(round(gpu_fraction * n_pages), 0, n_pages))
         host_pages = int(np.clip(round(host_fraction * n_pages), 0,
                                  n_pages - gpu_pages))
-        # the O(E) score pass only where a policy ranks by it
+        # the score pass is O(E); skip it when nothing consumes a score —
+        # the built-in score-free policies ('range', 'random') with a
+        # non-degree page placement.  User-registered admissions always get
+        # one (they may rank by it, like 'degree' does).
         score = None
-        if admission not in ("range", "random"):
+        if admission not in ("range", "random") or (
+                n_shards > 1 and placement == "degree"):
             score = page_scores(graph.indptr, graph.indices, page_words)
         assignment = make_admission(admission, n_pages, gpu_pages=gpu_pages,
                                     host_pages=host_pages, page_score=score,
                                     seed=seed)
+        if n_shards > 1 and n_ssd > 1:
+            raise ValueError(
+                f"n_ssd={n_ssd} with a {n_shards}-shard topology store: "
+                "per-shard queues and the pooled multiplier would model "
+                "the same devices twice — set n_shards only")
+        if page_shard is not None:
+            page_shard = np.asarray(page_shard, np.int16)
+            if page_shard.shape != (n_pages,):
+                raise ValueError(
+                    f"page_shard shape {page_shard.shape} does not match "
+                    f"{n_pages} edge pages")
+            if shard_specs is None and n_shards > 1:
+                shard_specs = (ssd,) * n_shards
+        elif n_shards > 1:
+            pol = make_placement(placement, n_shards, num_nodes=n_pages,
+                                 degrees=score, seed=seed)
+            page_shard = np.asarray(pol.shard_of(np.arange(n_pages)),
+                                    np.int16)
+            if shard_specs is None:
+                shard_specs = (ssd,) * n_shards
         return cls(graph, assignment, page_bytes=page_bytes,
-                   policy=admission, ssd=ssd, n_ssd=n_ssd, device=device)
+                   policy=admission, ssd=ssd, n_ssd=n_ssd,
+                   page_shard=page_shard, shard_specs=shard_specs,
+                   device=device)
 
     # -- telemetry -------------------------------------------------------------
     def tier_pages(self) -> tuple[int, int, int]:
@@ -268,27 +331,112 @@ class TieredTopologyStore:
 
     def hop_report(self, edge_positions: np.ndarray, *, hop: int = 0,
                    n_frontier: int = 0) -> TopologyGatherReport:
-        """Price one hop's adjacency reads: map each read to its page,
-        dedupe pages (a page is one 4 KB IO line), split by tier, and model
-        the hop time."""
+        """Price one hop's adjacency reads: map each read edge position to
+        its page, dedupe pages (page == 4 KB IO line, so this IS the
+        coalescing step), split by tier/shard, and model the hop time."""
         pos = np.asarray(edge_positions, np.int64)
         if len(pos) == 0:
             return TopologyGatherReport(
                 hop=hop, n_frontier=int(n_frontier), n_edge_reads=0,
-                pages_by_tier=(0, 0, 0), reads_by_tier=(0, 0, 0))
+                pages_by_tier=(0, 0, 0), reads_by_tier=(0, 0, 0),
+                shard_pages=(self.n_shards > 1) * (0,) * self.n_shards)
         pages, read_counts = np.unique(pos // self.page_words,
                                        return_counts=True)
+        if self.touches is not None:
+            self.touches.observe(pages, read_counts)
         tiers = self.assignment[pages]
         pages_by_tier = tuple(
             int(c) for c in np.bincount(tiers, minlength=3)[:3])
         reads_by_tier = tuple(
             int(c) for c in np.bincount(tiers, weights=read_counts,
                                         minlength=3)[:3])
+        shard_pages = ()
+        if self.n_shards > 1:
+            sm = tiers == TIER_STORAGE
+            shard_pages = tuple(int(c) for c in np.bincount(
+                self.page_shard[pages[sm]], minlength=self.n_shards))
         report = TopologyGatherReport(
             hop=hop, n_frontier=int(n_frontier), n_edge_reads=len(pos),
-            pages_by_tier=pages_by_tier, reads_by_tier=reads_by_tier)
-        return dataclasses.replace(
+            pages_by_tier=pages_by_tier, reads_by_tier=reads_by_tier,
+            shard_pages=shard_pages)
+        report = dataclasses.replace(
             report, time_s=self.timeline.price_topology_hop(report))
+        return report
+
+    # -- online re-admission (the adaptive policy's refresh loop) --------------
+    def plan_refresh(self):
+        """Fold the measured page touches and propose a re-admission under
+        the SAME tier budgets: hottest measured pages fill HBM, next-hottest
+        pinned host, tail sinks to storage (the build-time ranking, re-run
+        on live data).  Returns ``None`` when nothing would move, else
+        ``(assignment, n_moved, cost_s, saving_s)`` where `cost_s` prices
+        reading every promoted page once from the tier it is leaving (one
+        pseudo-hop through `price_topology_hop` — promotion IOs are real)
+        and `saving_s` is the modelled per-fold read-time delta: measured
+        touch rate x (old tier's per-page service time - new tier's).  The
+        caller (`TopologyRefresher`, core/feedback.py) commits only when
+        the saving over its horizon beats the cost."""
+        if self.touches is None:
+            raise ValueError(
+                "plan_refresh needs a feedback-enabled store — build it "
+                "with admission='adaptive'")
+        self.touches.fold()
+        scores = self.touches.scores()
+        gpu_budget, host_budget, _ = self.tier_pages()
+        order = np.argsort(-scores, kind="stable")
+        new = _fill_by_order(order, self.n_pages, gpu_budget, host_budget)
+        moved = new != self.assignment
+        if not moved.any():
+            return None
+        # promoted pages (moving to a faster tier, lower index) are read
+        # once from the tier they leave; demotions are free drops
+        promote = moved & (new < self.assignment)
+        n_from_host = int((promote & (self.assignment == TIER_HOST)).sum())
+        from_storage = promote & (self.assignment == TIER_STORAGE)
+        n_from_storage = int(from_storage.sum())
+        shard_pages = ()
+        if self.n_shards > 1:
+            shard_pages = tuple(int(c) for c in np.bincount(
+                self.page_shard[np.nonzero(from_storage)[0]],
+                minlength=self.n_shards))
+        n_promoted = n_from_host + n_from_storage
+        cost = 0.0
+        if n_promoted:
+            cost = self.timeline.price_topology_hop(TopologyGatherReport(
+                hop=-1, n_frontier=0,
+                n_edge_reads=n_promoted * self.page_words,
+                pages_by_tier=(0, n_from_host, n_from_storage),
+                reads_by_tier=(0, 0, 0), shard_pages=shard_pages))
+        # per-page-read service time by tier: HBM reads at HBM bandwidth,
+        # pinned host streams over PCIe, storage adds the device IO
+        t_read = np.array([
+            self.page_bytes / HBM_BW,
+            self.page_bytes / PCIE_GEN4_BW,
+            self.page_bytes / PCIE_GEN4_BW
+            + 1.0 / self.timeline.spec.peak_iops])
+        saving = float(np.sum(
+            scores * (t_read[self.assignment] - t_read[new])))
+        return new, int(moved.sum()), cost, saving
+
+    def commit_refresh(self, assignment: np.ndarray) -> None:
+        """Swap in a refreshed admission (from `plan_refresh`) and rebuild
+        the device-side hot-page state.  Budget-preserving by construction —
+        per-tier page counts must match the current assignment's, so a
+        refresh can never silently grow a tier."""
+        assignment = np.asarray(assignment, np.int8)
+        if assignment.shape != (self.n_pages,):
+            raise ValueError(f"refresh assignment shape {assignment.shape} "
+                             f"does not match {self.n_pages} edge pages")
+        new_counts = tuple(int(c) for c in
+                           np.bincount(assignment, minlength=3)[:3])
+        if new_counts != self.tier_pages():
+            raise ValueError(
+                f"refresh would change tier budgets {self.tier_pages()} -> "
+                f"{new_counts}; re-admission must preserve them")
+        self.assignment = assignment
+        # the resident set changed: rebuild the device page table and hot
+        # pages, so that frontier_read reads the new placement
+        self._place_hot_pages()
 
     # -- device data path ------------------------------------------------------
     def hot_pages(self) -> torch.Tensor:

@@ -9,7 +9,12 @@
     per dimension, bf16 stored as uint16 with `"bf16_as_u16": true`;
   * manifest.json records every leaf's shape and dtype plus the step and
     the caller's `extra` state (the loader's `state_dict()`, whose PCG64
-    state is plain JSON integers);
+    state is plain JSON integers).  A numpy array or scalar in `extra` (a
+    sharded plane's placement table, the fault plane's EMAs) is written as
+    ``extra/<n>.npy`` and stands in the manifest as ``{"__npy__": name}``
+    (``"__npy_scalar__"`` for a scalar); `restore` puts it back, type,
+    dtype and shape unchanged.  An `extra` without numpy values writes the
+    manifest the JAX package writes;
   * writes go to ``step_XXXXXXXX.tmp/`` and one atomic rename publishes the
     checkpoint, so a crash mid-write never corrupts the latest commit; the
     last 3 commits are kept.
@@ -68,6 +73,40 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+_NPY, _NPY_SCALAR = "__npy__", "__npy_scalar__"
+
+
+def _encode_extra(state, out: Path, n: list[int]):
+    """`state` with each numpy array or scalar saved under `out` and
+    replaced by its marker."""
+    if isinstance(state, dict):
+        return {k: _encode_extra(v, out, n) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [_encode_extra(v, out, n) for v in state]
+    if isinstance(state, (np.ndarray, np.generic)):
+        out.mkdir(exist_ok=True)
+        np.save(out / f"{n[0]}.npy", np.asarray(state))
+        marker = _NPY if isinstance(state, np.ndarray) else _NPY_SCALAR
+        name = f"{out.name}/{n[0]}.npy"
+        n[0] += 1
+        return {marker: name}
+    return state
+
+
+def _decode_extra(state, d: Path):
+    """`_encode_extra` undone: each marker replaced by its array or
+    scalar."""
+    if isinstance(state, dict):
+        if state.keys() == {_NPY}:
+            return np.load(d / state[_NPY])
+        if state.keys() == {_NPY_SCALAR}:
+            return np.load(d / state[_NPY_SCALAR])[()]
+        return {k: _decode_extra(v, d) for k, v in state.items()}
+    if isinstance(state, list):
+        return [_decode_extra(v, d) for v in state]
+    return state
+
+
 def save(ckpt_dir: str | Path, step: int, tree: Any,
          extra_state: dict | None = None) -> Path:
     """Write a checkpoint; returns the committed directory."""
@@ -78,7 +117,8 @@ def save(ckpt_dir: str | Path, step: int, tree: Any,
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    manifest = {"step": step, "leaves": {}, "extra": extra_state or {}}
+    manifest = {"step": step, "leaves": {},
+                "extra": _encode_extra(extra_state or {}, tmp / "extra", [0])}
     for key, leaf in _flatten(tree).items():
         t = torch.as_tensor(leaf)
         entry = {"shape": list(t.shape), "dtype": _dtype_name(t.dtype),
@@ -142,4 +182,5 @@ def restore(ckpt_dir: str | Path, step: int, like: Any,
         want = torch.as_tensor(want)
         rebuilt[key] = _load_leaf(d, manifest["leaves"][key]).to(
             want.device, want.dtype)
-    return _unflatten(like, rebuilt), manifest.get("extra", {})
+    return _unflatten(like, rebuilt), _decode_extra(
+        manifest.get("extra", {}), d)

@@ -176,6 +176,45 @@ def test_format_is_the_reference_byte_for_byte(tmp_path, with_list):
         assert (tdir / name).read_bytes() == (jdir / name).read_bytes(), name
 
 
+def test_extra_state_keeps_numpy_values(tmp_path):
+    """Numpy arrays and scalars in the extra state (a sharded plane's
+    placement table, the fault plane's EMAs) come back with their type,
+    dtype, shape and values; the rest of the state is JSON as before."""
+    extra = {"table": np.arange(7, dtype=np.int16),
+             "nested": {"ema": np.linspace(0.0, 1.0, 4),
+                        "empty": np.zeros(0, np.int64),
+                        "grid": np.eye(3, dtype=np.float32)},
+             "pair": [np.float64(0.1) / 3, np.int64(-5)],
+             "rng": {"state": 2 ** 100 + 1}, "name": "x", "none": None}
+    d = ckpt.save(tmp_path, 3, _tree(), extra)
+    assert sorted(p.name for p in (d / "extra").iterdir()) \
+        == [f"{i}.npy" for i in range(6)]
+    _, got = ckpt.restore(tmp_path, 3, _tree())
+    flat_want, flat_got = _flat_state(extra), _flat_state(got)
+    assert flat_got.keys() == flat_want.keys()
+    for k, want in flat_want.items():
+        assert type(flat_got[k]) is type(want), k
+        if isinstance(want, np.ndarray):
+            assert flat_got[k].dtype == want.dtype
+            np.testing.assert_array_equal(flat_got[k], want)
+        else:
+            assert flat_got[k] == want, k
+
+
+def _flat_state(state, prefix=""):
+    """A state's leaves by path (lists and tuples alike)."""
+    if isinstance(state, dict):
+        items = state.items()
+    elif isinstance(state, (list, tuple)):
+        items = enumerate(state)
+    else:
+        return {prefix: state}
+    out = {}
+    for k, v in items:
+        out.update(_flat_state(v, f"{prefix}/{k}"))
+    return out
+
+
 def test_each_package_restores_the_others_tree(tmp_path):
     jtree, ttree = _jtree(1), _tree(1)
     jckpt.save(tmp_path / "ref", 1, jtree)

@@ -146,10 +146,12 @@ def test_state_restores_the_built_row_store_and_cache():
 
 
 def test_fault_state_is_refused():
+    """A plane without a fault schedule refuses a checkpoint that carries
+    fault-plane state, with the reference's error."""
     feats = _feats()
     port = _port("gids", feats)
     st = port.state_dict()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="no fault_schedule"):
         port.load_state_dict({**st, "fault_state": {"injector": {}}})
 
 

@@ -111,16 +111,18 @@ def test_three_sgd_steps_match_reference():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
-    """The host planes, merged windows, the topology plane and the LADIES
-    sampler are ported; the sharded and GNN-serving presets still raise,
-    naming their ROADMAP item, and an unknown sampler raises ValueError
-    when the config is built."""
-    for name in ("gids-sharded", "serve-gnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    """The host planes, merged windows, the topology plane, the sharded
+    and cluster planes and the LADIES sampler are ported; the GNN-serving
+    presets still raise, naming their ROADMAP item, and an unknown sampler
+    raises ValueError when the config is built."""
+    for name in ("serve-gnn", "serve-gnn-shared"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 9"):
             DataPlaneSpec.preset(name)
     for name in ("gids", "gids-async", "bam", "mmap", "pinned-host",
                  "gids-merged", "gids-merged-async", "gids-topo",
-                 "gids-topo-merged"):
+                 "gids-topo-merged", "gids-sharded", "gids-merged-sharded",
+                 "gids-hosts", "gids-hosts-merged"):
         assert DataPlaneSpec.preset(name).name == name
     assert LoaderConfig().data_plane == "gids"
     spec = DataPlaneSpec.preset("gids-device", merge_execute=True,
@@ -158,7 +160,9 @@ def test_port_imports_no_jax():
     assert "imported" in out.stdout
     for name in ("core.topology", "sampling.tiered", "core.accumulator",
                  "kernels.tiered_gather", "core.device_store",
-                 "core.software_cache", "core.prefetch", "graph.datasets"):
+                 "core.software_cache", "core.prefetch", "graph.datasets",
+                 "core.sharding", "core.hosts", "core.faults",
+                 "core.feedback", "core.storage_sim", "graph.synthetic"):
         assert f"repro_torch.{name}\n" in out.stdout
     pattern = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)\b)",
                          re.M)

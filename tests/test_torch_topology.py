@@ -22,7 +22,7 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.sampling.neighbor import host_sample_blocks  # noqa: E402
 from repro_torch.sampling.tiered import tiered_sample_blocks  # noqa: E402
 
-ADMISSIONS = ["degree", "range", "random"]
+ADMISSIONS = ["degree", "range", "random", "adaptive"]
 BUDGETS = [(0.25, 0.5), (0.3, 0.3), (0.0, 0.5), (1.0, 0.0)]
 
 
@@ -48,8 +48,7 @@ def test_from_graph_matches_reference(graphs, admission, gpu, host):
     assert (a.page_words, a.n_pages) == (b.page_words, b.n_pages)
     assert a.tier_pages() == b.tier_pages()
     assert a.tier_bytes() == b.tier_bytes()
-    assert jtopo.admission_names() == tuple(
-        sorted((*ttopo.admission_names(), "adaptive")))
+    assert jtopo.admission_names() == ttopo.admission_names()
 
 
 def test_page_scores_match_reference(graphs):
@@ -191,11 +190,17 @@ def test_tiered_sample_blocks_match_reference(graphs, admission):
 
 
 def test_unported_topology_options_raise(graphs):
-    tg = graphs[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ttopo.TieredTopologyStore.from_graph(tg, admission="adaptive",
-                                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ttopo.TieredTopologyStore.from_graph(tg, n_shards=2, device="cpu")
+    """The adaptive admission and the sharded page queues are ported: both
+    build the reference's store (with its touch table and page shards);
+    an unknown admission still raises."""
+    jg, tg = graphs
+    for kw in (dict(admission="adaptive"), dict(n_shards=2),
+               dict(admission="adaptive", n_shards=3, placement="degree")):
+        a = jtopo.TieredTopologyStore.from_graph(jg, **kw)
+        b = ttopo.TieredTopologyStore.from_graph(tg, device="cpu", **kw)
+        np.testing.assert_array_equal(a.assignment, b.assignment)
+        np.testing.assert_array_equal(a.page_shard, b.page_shard)
+        assert a.n_shards == b.n_shards
+        assert (a.touches is None) == (b.touches is None)
     with pytest.raises(KeyError):
         ttopo.make_admission("no-such-policy", 4, gpu_pages=1, host_pages=1)
