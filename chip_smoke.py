@@ -130,6 +130,42 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    burst's prep, straggler, imbalance (remote fraction on B), the
    migrations, refreshes, hedged bursts and rerouted reads, and the
    metis-lite build seconds and cut-edge fraction.
+4e. The observability plane and online GNN serving, at phase 3's width.
+   First traced twins of two earlier paths, features only: phase 4's
+   merged topology plane (TRACED[TRACED_MERGED] batches) and phase 4d's
+   plane A (TRACED[TRACED_FAULT]), each loader run from the same seed
+   untraced and with a `repro_torch.obs.Tracer`.  Gates: prep floats,
+   blocks and features bit-equal; every batch span equal to its
+   `prep_time_s` within RECONCILE_EPS; the trace written by `Tracer.write`
+   into a temporary directory passes `validate_trace`; plane A's trace
+   holds fault-recovery spans and `controller.*` counters; on phase 4's
+   plane one `frontier_read` per sampled hop.  Then the GNN serve engine
+   (`repro_torch.serve.GNNServeEngine`, `INTEL_OPTANE` pricing, fanouts
+   (10, 5)) with the GraphSAGE of phase 3 on the card, each run beside a
+   CPU twin (the same engine on `device="cpu"` over a clone of the same
+   stream): S1 `serve-gnn` merged, 2 tenants, quotas (3, 1), adaptive
+   quotas, GNN_SERVE["requests"] requests of benchmarks/fig_serve_load.py's
+   two tenant mixes at GNN_SERVE["qps"] of virtual time, traced, then
+   again untraced; S2 its first GNN_SERVE["per_request"] requests served
+   per request (`tiered_gather`); S3 benchmarks/fig_faults.py's serve
+   scenario (shard 0 browns out 10x from burst 3, the brownout ladder on,
+   a 256-line cache, without the model: the ladder shrinks the fanouts
+   the GNN is built for); S4 `serve-gnn-shared` merged over
+   GNN_SERVE["shared"] requests.  Gates: every record's priced floats,
+   the p50, p99, goodput, attainment, hit ratios and quota trace equal
+   the twin's; every kept row (stale rows too) equals the host features
+   of its nodes bit for bit; the first GNN_SERVE["logits"] served
+   requests' logits of S1 agree within rtol 1e-5 with the same forward
+   through `segment_mean_ref`; the row store is coherent after every run,
+   right after each repartition and after the probe that follows it; S1
+   repartitions at least once; its request spans equal their latency
+   within RECONCILE_EPS and its written trace validates; the untraced S1
+   gives the traced run's records; S3 serves at least one request stale
+   and sheds one; `frontier_read` is launched once per sampled hop.
+   Prints each S1 window's wall ms split into sampling, tenant probe,
+   host staging, H2D, gather, fill and forward, each run's medians,
+   requests served per wall second, peak memory, the priced p99 and
+   goodput (model time), and the `modelled_vs_measured` medians.
 5. LM serving at the full published width of qwen2-1.5b (28 layers,
    d_model 1536, 12 heads, GQA kv 2, hd 128, d_ff 8960, padded vocab
    153600, 1,546,270,208 parameters) with `attn_impl="flash"`, weights
@@ -1451,23 +1487,25 @@ HOST_STEPS, FEATURE_BATCHES = 16, 4
 
 
 def _check_row_store(torch, tier, host_feats, what: str) -> None:
-    """Every resident line of the window cache's row store holds its tag's
-    feature row, bit for bit."""
-    tags = torch.from_numpy(tier.cache.tags.reshape(-1)).to(DEVICE)
+    """Every resident line of a numpy cache's row store (the window
+    cache's, or the tenant cache's partitions' lines in order) holds its
+    tag's feature row, bit for bit."""
+    tags = torch.from_numpy(tier._flat_tags()).to(DEVICE)
     resident = tags >= 0
-    check(torch.equal(tier.rows[resident], host_feats[tags[resident]]),
+    check(tier.rows.shape[0] == tags.numel()
+          and torch.equal(tier.rows[resident], host_feats[tags[resident]]),
           f"{what}: a resident line of the row store differs from its "
           "tag's feature row")
 
 
-def _host_loader(torch, graph, feats, cfg, plane):
+def _host_loader(torch, graph, feats, cfg, plane, tracer=None):
     from repro_torch.core import INTEL_OPTANE, GIDSDataLoader, LoaderConfig
     return GIDSDataLoader(
         graph, feats,
         LoaderConfig(batch_size=FULL["batch"], fanouts=cfg.fanouts,
                      data_plane=plane, cache_lines=FULL["cache_lines"],
                      window_depth=8, cbuf_fraction=0.1),
-        ssd=INTEL_OPTANE, device=DEVICE)
+        ssd=INTEL_OPTANE, device=DEVICE, tracer=tracer)
 
 
 def host_plane_path(torch, np, plane, work, host_feats) -> dict:
@@ -2132,13 +2170,14 @@ def _cluster_config(path: str, cfg):
         rebalance_interval=CLUSTER["rebalance_interval"], **common)
 
 
-def _cluster_loader(graph, feats, cfg, device, hot=None, first=0):
+def _cluster_loader(graph, feats, cfg, device, hot=None, first=0,
+                    tracer=None):
     """A loader of `cfg` on `device`; with `hot`, the sampled-order drift:
     the batch sampled k-th (counting from `first`) draws its seeds from
     hot[(k // FAULT["epoch"]) % len(hot)]."""
     from repro_torch.core import INTEL_OPTANE, GIDSDataLoader
     loader = GIDSDataLoader(graph, feats, cfg, ssd=INTEL_OPTANE,
-                            device=device)
+                            device=device, tracer=tracer)
     if hot is not None:
         sample, count = loader._sample_one, [first]
 
@@ -2555,6 +2594,442 @@ def cluster_planes(torch, np) -> dict:
     emit({"phase": "cluster planes", "seconds": time.perf_counter() - t0})
     return by_path
 
+# -- phase 4e ------------------------------------------------------------------
+
+TRACED_MERGED = "traced " + MERGED_PLANE
+TRACED_FAULT = "traced " + FAULT_PLANE
+#: the traced twins' depth, in batches through each plane's loader
+TRACED = {TRACED_MERGED: 16, TRACED_FAULT: 8}
+SERVE_S1, SERVE_S2 = "serve-gnn merged", "serve-gnn per-request"
+SERVE_S3, SERVE_S4 = "serve-gnn brownout", "serve-gnn-shared merged"
+#: the serving runs, after benchmarks/fig_serve_load.py (the stream, its
+#: deadline and tenant mixes) and fig_faults.py (the brownout scenario)
+GNN_SERVE = dict(requests=400, qps=8000, stream_seed=11, deadline_s=3e-3,
+                 cache_lines=1 << 14, quotas=(3.0, 1.0), per_request=100,
+                 shared=100, logits=16, fault_requests=300, fault_qps=500,
+                 fault_stream_seed=3, fault_cache_lines=256)
+RECONCILE_EPS = 1e-9
+
+
+def _sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _series_medians(snapshot: dict) -> dict:
+    """The median modelled, measured and gap seconds of every
+    `modelled_vs_measured.<stage>` series of a metrics snapshot."""
+    out = {}
+    for name, s in snapshot.items():
+        if name.startswith("modelled_vs_measured.") and s["points"]:
+            out[name.split(".", 1)[1]] = {
+                k: statistics.median(p[k] for p in s["points"])
+                for k in ("modelled_s", "measured_s", "gap_s")} \
+                | {"n": s["n"]}
+    return out
+
+
+def _written_trace(tracer) -> dict:
+    """Write the trace with `Tracer.write` into a temporary directory,
+    read it back and validate it; its size, events and problems."""
+    import tempfile
+    from repro_torch.obs import validate_trace
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        events = tracer.write(str(path))
+        doc = json.loads(path.read_text())
+        size = path.stat().st_size
+    problems = validate_trace(doc) + validate_trace(tracer)
+    return {"events": len(events), "bytes": size, "problems": problems[:5],
+            "n_problems": len(problems)}
+
+
+def _traced_loader(work, path, tracer, hot):
+    graph, _, feats, cfg, _ = work
+    if path == TRACED_MERGED:
+        return _host_loader(None, graph, feats, cfg,
+                            _plane_spec(MERGED_PLANE), tracer=tracer)
+    return _cluster_loader(graph, feats, _cluster_config(FAULT_PLANE, cfg),
+                           DEVICE, hot, tracer=tracer)
+
+
+def traced_twin(torch, np, work, host_feats, path, hot) -> dict:
+    """An earlier path's loader run twice on the card from the same seed,
+    untraced and with a Tracer: prep floats, blocks and features bit-equal,
+    every batch span its prep time within RECONCILE_EPS, the written trace
+    valid; on plane A the fault-recovery spans and controller counters."""
+    from repro_torch.kernels import _build
+    from repro_torch.obs import Tracer
+    n = TRACED[path]
+    plain = _traced_loader(work, path, None, hot)
+    untraced = [plain.next_batch() for _ in range(n)]
+    del plain
+    tracer = Tracer()
+    loader = _traced_loader(work, path, tracer, hot)
+    _sync(torch)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    traced = [loader.next_batch() for _ in range(n)]
+    _sync(torch)
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for i, (a, b) in enumerate(zip(untraced, traced)):
+        check(_priced(a) == _priced(b),
+              f"{path} batch {i}: priced floats differ from the untraced "
+              "run's")
+        check(np.array_equal(a.blocks.all_nodes, b.blocks.all_nodes),
+              f"{path} batch {i}: blocks differ from the untraced run's")
+        nodes = torch.from_numpy(b.blocks.all_nodes).to(DEVICE)
+        check(torch.equal(a.features, b.features)
+              and torch.equal(b.features, host_feats[nodes]),
+              f"{path} batch {i}: features differ")
+    roots = [r for r in tracer.roots() if r.name == "batch"][:n]
+    check(len(roots) == n, f"{path}: {len(roots)} batch spans for {n}")
+    err = max(max(abs(r.dur - b.prep_time_s) for r, b in zip(roots, traced)),
+              tracer.max_reconcile_error())
+    check(err <= RECONCILE_EPS, f"{path}: a batch span is {err} s off its "
+                                "prep time")
+    written = _written_trace(tracer)
+    check(written["n_problems"] == 0,
+          f"{path}: the written trace is invalid: {written['problems']}")
+    snap = tracer.metrics.snapshot()
+    fault_spans = sum(sp.name.startswith("fault/")
+                      for r in tracer.roots() for sp in r.walk())
+    controller = {k: v["value"] for k, v in snap.items()
+                  if k.startswith("controller.")}
+    if path == TRACED_FAULT:
+        check(fault_spans > 0, f"{path}: no fault-recovery span")
+        check(controller, f"{path}: no controller.* counter")
+    hops = snap.get("topo.hops", {}).get("value", 0)
+    if path == TRACED_MERGED:
+        check(launches["frontier_read"] == hops > 0,
+              f"{path}: {launches['frontier_read']} frontier_read launches "
+              f"for {hops} hops (one per hop expected)")
+    emit({"phase": "traced", "plane": path, "batches": n,
+          "wall_ms_per_batch": wall_s / n * 1e3, "launches": launches,
+          "max_reconcile_error": err, "trace_events": written["events"],
+          "trace_bytes": written["bytes"], "fault_spans": fault_spans,
+          "controller": controller, "hops": hops,
+          "instants": [i.name for i in tracer.instants()],
+          "modelled_vs_measured": _series_medians(snap)})
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0, f"kernel {name} was not launched on {path}")
+    return launches
+
+
+def _sweep_tenants():
+    """benchmarks/fig_serve_load.py's two tenant mixes: steady Poisson and
+    bursty MMPP."""
+    from repro_torch.serve import TenantSpec
+    d = GNN_SERVE["deadline_s"]
+    return (TenantSpec("steady", rate_share=1.0, hot_fraction=0.03,
+                       hot_prob=0.9, mean_seeds=4, deadline_s=d,
+                       arrival="poisson"),
+            TenantSpec("bursty", rate_share=1.0, hot_fraction=0.5,
+                       hot_prob=0.2, mean_seeds=8, deadline_s=d,
+                       arrival="mmpp", burst_factor=8.0, burst_fraction=0.1,
+                       burst_cycle_s=0.02))
+
+
+def _clone_stream(requests):
+    return [type(r)(r.rid, r.tenant, r.arrival_s, r.seeds.copy(),
+                    r.deadline_s) for r in requests]
+
+
+def _serve_record(rec) -> tuple:
+    """What a CPU twin must reproduce of one record, float for float."""
+    return (rec.rid, rec.rejected, rec.shed_reason, rec.start_s,
+            rec.completion_s, rec.sample_s, rec.gather_s, rec.forward_s,
+            rec.stale, rec.degraded_level)
+
+
+def _serve_summary(res) -> tuple:
+    return (res.p50_s(), res.p99_s(), res.goodput_qps(), res.attainment(),
+            res.tenant_hit_ratios, res.quota_trace)
+
+
+def _serve_configs():
+    from repro_torch.core import BrownoutEvent, FaultSchedule
+    tenant = dict(data_plane="serve-gnn", tenants=2,
+                  tenant_quotas=GNN_SERVE["quotas"], adaptive_quotas=True,
+                  cache_lines=GNN_SERVE["cache_lines"], seed=3)
+    return {
+        SERVE_S1: dict(merged=True, **tenant),
+        SERVE_S2: dict(merged=False, **tenant),
+        SERVE_S3: dict(seed=5, cache_lines=GNN_SERVE["fault_cache_lines"],
+                       brownout=True, fault_schedule=FaultSchedule(events=(
+                           BrownoutEvent(shard=0, start=3, end=10_000,
+                                         multiplier=10.0),))),
+        SERVE_S4: dict(merged=True, data_plane="serve-gnn-shared",
+                       tenants=2, cache_lines=GNN_SERVE["cache_lines"],
+                       seed=3),
+    }
+
+
+def _serve_engine(work, device, over, **kw):
+    from repro_torch.core import INTEL_OPTANE
+    from repro_torch.serve import GNNServeConfig, GNNServeEngine
+    graph, _, feats, cfg, _ = work
+    return GNNServeEngine(graph, feats,
+                          GNNServeConfig(fanouts=tuple(cfg.fanouts), **over),
+                          ssd=INTEL_OPTANE, device=device, **kw)
+
+
+SPLIT_KEYS = ("sample", "probe", "stage_host", "h2d", "gather", "fill",
+              "forward")
+
+
+def serve_run(torch, np, work, host_feats, path, stream, traced=False,
+              per_window=False, model=True):
+    """Serve `stream` on the card with the port's GNN, after its CPU twin:
+    every record's priced floats, the result's percentiles, goodput,
+    attainment, hit ratios and quota trace equal the twin's; every kept
+    row is its node's feature row, and with `model` every request's logits
+    (the port's GraphSAGE on the card) are finite; the row store is coherent after the run
+    (and right after each repartition); frontier_read is launched once a
+    sampled hop."""
+    from repro_torch.kernels import _build
+    from repro_torch.obs import Tracer
+    over = _serve_configs()[path]
+    t0 = time.perf_counter()
+    want = _serve_engine(work, "cpu", over).run(_clone_stream(stream))
+    twin_s = time.perf_counter() - t0
+    tracer = Tracer() if traced else None
+    engine = _serve_engine(work, DEVICE, dict(over, keep_features=True),
+                           model=work[4] if model else None,
+                           tracer=tracer)
+    tier = engine.store.tiers[0]
+
+    # host time per stage, summed between window ends; every sampled hop
+    acc = dict.fromkeys(SPLIT_KEYS, 0.0)
+    windows, hops, state = [], [0], {"repartitions": 0, "recheck": False}
+    sample, run_model, execute = (engine._sample, engine._run_model,
+                                  engine._execute)
+    probe_rows, hop_report = tier._probe_rows, engine.topo.hop_report
+
+    def timed_sample(req):
+        t = time.perf_counter()
+        out = sample(req)
+        acc["sample"] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def counted_hop_report(read_pos, **kw):
+        hops[0] += 1
+        return hop_report(read_pos, **kw)
+
+    def split_probe(*a, **k):
+        out = probe_rows(*a, **k)
+        for key, ms in tier.last_split_ms.items():
+            acc[key] += ms
+        if state["recheck"]:
+            _check_row_store(torch, tier, host_feats,
+                             f"{path}: the probe after a repartition")
+            state["recheck"] = False
+        return out
+
+    def timed_model(blocks, rows):
+        _sync(torch)
+        t = time.perf_counter()
+        out = run_model(blocks, rows)
+        _sync(torch)
+        acc["forward"] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def timed_execute(decision, records, wins):
+        t = time.perf_counter()
+        busy = execute(decision, records, wins)
+        w = wins[-1]
+        windows.append({"window": len(wins) - 1, "requests": w.n_requests,
+                        "wall_ms": (time.perf_counter() - t) * 1e3,
+                        **{f"{k}_ms": acc[k] for k in SPLIT_KEYS}})
+        for k in SPLIT_KEYS:
+            acc[k] = 0.0
+        return busy
+
+    engine._sample, engine._run_model = timed_sample, timed_model
+    engine._execute = timed_execute
+    engine.topo.hop_report = counted_hop_report
+    tier._probe_rows = split_probe
+    if hasattr(tier, "repartition"):
+        repartition = tier.repartition
+
+        def checked_repartition(quotas):
+            repartition(quotas)
+            state["repartitions"] += 1
+            check(tier.rows.shape[0] == tier.total_lines
+                  and not bool(tier.rows.any()),
+                  f"{path}: the row store was not laid out and zeroed for "
+                  "the new budgets")
+            state["recheck"] = True
+        tier.repartition = checked_repartition
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(torch)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = engine.run(_clone_stream(stream))
+    _sync(torch)
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+
+    check(len(got.records) == len(want.records)
+          and all(_serve_record(a) == _serve_record(b)
+                  for a, b in zip(want.records, got.records)),
+          f"{path}: a record's priced floats differ from the CPU twin's")
+    check(_serve_summary(got) == _serve_summary(want),
+          f"{path}: p50, p99, goodput, attainment, hit ratios or quota "
+          "trace differ from the CPU twin's")
+    served = got.served
+    check(served, f"{path}: nothing was served")
+    for rec in served:
+        nodes = torch.from_numpy(rec.all_nodes).to(DEVICE)
+        check(rec.features.device.type == DEVICE
+              and torch.equal(rec.features, host_feats[nodes]),
+              f"{path}: request {rec.rid}'s rows differ from "
+              f"features[all_nodes] (stale={rec.stale})")
+        check(not model or bool(torch.isfinite(rec.logits).all()),
+              f"{path}: request {rec.rid}'s logits are not finite")
+    _check_row_store(torch, tier, host_feats, f"{path}: after the run")
+    check(launches["frontier_read"] == hops[0] > 0,
+          f"{path}: {launches['frontier_read']} frontier_read launches for "
+          f"{hops[0]} sampled hops (one per hop expected)")
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0, f"kernel {name} was not launched on {path}")
+    if per_window:
+        for w in windows:
+            emit({"phase": "serve_window", "plane": path, **w})
+    out = {"phase": "serve", "plane": path, "requests": len(stream),
+           "served": len(served), "shed": got.n_rejected,
+           "stale": got.n_stale_served, "degraded": got.n_degraded,
+           "windows": len(got.windows), "mean_window": got.mean_window,
+           "repartitions": len(got.quota_trace),
+           "hit_ratios": got.tenant_hit_ratios,
+           "wall_s": wall_s, "twin_wall_s": twin_s,
+           "served_per_wall_s": len(served) / wall_s,
+           "window_median_ms": {
+               k: statistics.median(w[k] for w in windows)
+               for k in ("wall_ms", *(f"{s}_ms" for s in SPLIT_KEYS))},
+           "hops": hops[0], "launches": launches,
+           "model_time_p99_s": got.p99_s(),
+           "model_time_p50_s": got.p50_s(),
+           "model_time_goodput_qps": got.goodput_qps(),
+           "attainment": got.attainment()}
+    if DEVICE == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return got, engine, tracer, out, launches
+
+
+def _logits_gate(torch, engine, res, n: int) -> float:
+    """The first `n` served requests' logits against the same forward with
+    `segment_mean_ref` in place of the kernel: the largest error relative
+    to the reference logits' largest magnitude."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.gnn import hop_indices
+    worst = 0.0
+    fanouts = tuple(engine.config.fanouts)
+    for rec in res.served[:n]:
+        blocks = engine._sample_cache[(rec.rid, fanouts)][0]
+        hi = [torch.from_numpy(h).to(DEVICE) for h in hop_indices(blocks)]
+        with torch.no_grad(), mock.patch.object(ops, "segment_mean",
+                                                ref.segment_mean_ref):
+            plain = engine.model.forward(rec.features, hi)
+        rel = float((rec.logits - plain).abs().max() / plain.abs().max())
+        worst = max(worst, rel)
+    return worst
+
+
+def gnn_serve(torch, np, work, host_feats) -> dict:
+    """S1-S4: the GNN serve engine at full width on the card, each beside
+    its CPU twin."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import TenantSpec, generate_stream
+    graph = work[0]
+    stream = generate_stream(graph.num_nodes, _sweep_tenants(),
+                             GNN_SERVE["qps"], GNN_SERVE["requests"],
+                             seed=GNN_SERVE["stream_seed"])
+    by_path = {}
+    # S1, traced, then again untraced
+    res, engine, tracer, out, by_path[SERVE_S1] = serve_run(
+        torch, np, work, host_feats, SERVE_S1, stream, traced=True,
+        per_window=True)
+    check(len(res.quota_trace) >= 1, f"{SERVE_S1}: no repartition")
+    saved = dict(_build.LAUNCHES)
+    out["logits_max_rel_err"] = _logits_gate(torch, engine, res,
+                                             GNN_SERVE["logits"])
+    _build.LAUNCHES.update(saved)
+    check(out["logits_max_rel_err"] <= 1e-5,
+          f"{SERVE_S1}: logits {out['logits_max_rel_err']} off the plain "
+          "forward's")
+    req_spans = {sp.args["rid"]: sp for sp in tracer.roots()
+                 if sp.name == "request"}
+    check(len(req_spans) == len(res.served),
+          f"{SERVE_S1}: {len(req_spans)} request spans")
+    err = max(max(abs(req_spans[r.rid].dur - r.latency_s),
+                  req_spans[r.rid].reconcile_error()) for r in res.served)
+    check(err <= RECONCILE_EPS, f"{SERVE_S1}: a request span is {err} s off "
+                                "its latency")
+    written = _written_trace(tracer)
+    check(written["n_problems"] == 0,
+          f"{SERVE_S1}: the written trace is invalid: {written['problems']}")
+    out.update(trace_events=written["events"], trace_bytes=written["bytes"],
+               max_reconcile_error=err,
+               modelled_vs_measured=_series_medians(
+                   tracer.metrics.snapshot()))
+    emit(out)
+    del engine, tracer
+    untraced, engine, _, out, _ = serve_run(torch, np, work, host_feats,
+                                            SERVE_S1, stream)
+    check([_serve_record(r) for r in untraced.records]
+          == [_serve_record(r) for r in res.records],
+          f"{SERVE_S1}: the untraced run's records differ from the traced "
+          "run's")
+    emit(out | {"plane": SERVE_S1 + " untraced"})
+    del engine, untraced, res
+    # S2: per-request over the stream's first requests; S4: the shared cache
+    for path, n in ((SERVE_S2, GNN_SERVE["per_request"]),
+                    (SERVE_S4, GNN_SERVE["shared"])):
+        _, _, _, out, by_path[path] = serve_run(torch, np, work, host_feats,
+                                                path, stream[:n])
+        emit(out)
+    # S3: fig_faults' serve scenario at this graph's size, without the
+    # model: the GNN is built for the configured fanouts, and the brownout
+    # ladder's first step samples smaller ones
+    faults = generate_stream(
+        graph.num_nodes, [TenantSpec(name="t0", deadline_s=3e-3,
+                                     mean_seeds=8)],
+        GNN_SERVE["fault_qps"], GNN_SERVE["fault_requests"],
+        seed=GNN_SERVE["fault_stream_seed"])
+    res, engine, _, out, by_path[SERVE_S3] = serve_run(
+        torch, np, work, host_feats, SERVE_S3, faults, model=False)
+    out["ladder"] = engine.brownout.level_trace
+    emit(out)
+    check(res.n_stale_served > 0 and res.n_shed_brownout > 0,
+          f"{SERVE_S3}: {res.n_stale_served} served stale and "
+          f"{res.n_shed_brownout} shed (at least one of each expected)")
+    return by_path
+
+
+def observe_and_serve(torch, np) -> dict:
+    """Phase 4e: traced twins of phases 4 and 4d, then GNN serving."""
+    from repro_torch.core import make_placement
+    t0 = time.perf_counter()
+    work = workload(torch, np)
+    graph = work[0]
+    host_feats = torch.from_numpy(work[2]).to(DEVICE)
+    table = make_placement("degree", FAULT["n_shards"],
+                           degrees=graph.degrees()).table
+    hot = [np.nonzero(table == s)[0] for s in range(FAULT["n_shards"])]
+    by_path = {}
+    for path in (TRACED_MERGED, TRACED_FAULT):
+        by_path[path] = traced_twin(torch, np, work, host_feats, path, hot)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    by_path.update(gnn_serve(torch, np, work, host_feats))
+    emit({"phase": "observe and serve", "seconds": time.perf_counter() - t0,
+          "traced_s": t1 - t0, "serve_s": time.perf_counter() - t1})
+    return by_path
+
 
 LM_PATH = "lm-serve"
 
@@ -2833,6 +3308,16 @@ PATH_KERNELS = {
     FAULT_PLANE: ("segment_mean", "tiered_gather", "store_fill"),
     CLUSTER_PLANE: ("segment_mean", "tiered_gather_unique", "frontier_read",
                     "store_fill"),
+    TRACED_MERGED: ("tiered_gather_unique", "frontier_read", "store_fill",
+                    "cache_bucket", "cache_access"),
+    TRACED_FAULT: ("tiered_gather", "store_fill"),
+    SERVE_S1: ("frontier_read", "tiered_gather_unique", "store_fill",
+               "segment_mean"),
+    SERVE_S2: ("frontier_read", "tiered_gather", "store_fill",
+               "segment_mean"),
+    SERVE_S3: ("frontier_read", "tiered_gather_unique", "store_fill"),
+    SERVE_S4: ("frontier_read", "tiered_gather_unique", "store_fill",
+               "segment_mean"),
     LM_PATH: ("flash_attention", "flash_combine"),
 }
 
@@ -2928,6 +3413,8 @@ def main() -> int:
     by_path.update(resume_and_samplers(torch, np))
     torch.cuda.empty_cache()
     by_path.update(cluster_planes(torch, np))
+    torch.cuda.empty_cache()
+    by_path.update(observe_and_serve(torch, np))
     torch.cuda.empty_cache()
     lm_gate_f32(torch, np)
     torch.cuda.empty_cache()

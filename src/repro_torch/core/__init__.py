@@ -6,8 +6,10 @@
 # its prefetch engine (prefetch.py); the tiered topology store
 # (topology.py) behind the priced sampler; the sharded and cluster
 # namespaces (sharding.py, hosts.py), the fault plane (faults.py) and the
-# feedback controllers (feedback.py).
-from .accumulator import (AccumulatorConfig, DynamicAccessAccumulator,
+# feedback controllers (feedback.py), the serve plane's tenant cache and
+# quota controller, and the deadline-bounded serving window policy.
+from .accumulator import (AccumulatorConfig, DeadlineWindowConfig,
+                          DeadlineWindowPolicy, DynamicAccessAccumulator,
                           MergedWindow, merge_window)
 from .constant_buffer import ConstantBuffer
 from .dataplane import (BuildContext, DataPlane, DataPlaneSpec, TierSpec,
@@ -16,8 +18,8 @@ from .faults import (BrownoutEvent, FailoverRouter, FaultInjector,
                      FaultSchedule, FaultedBurstResult, FlakyReadsEvent,
                      HedgePolicy, OutageEvent, RetryPolicy)
 from .feature_store import CoalescedReport, GatherReport, TieredFeatureStore
-from .feedback import (AmortizedCost, MigrationEvent, RefreshEvent,
-                       ShardHealthMonitor, ShardRebalancer,
+from .feedback import (AmortizedCost, MigrationEvent, QuotaController,
+                       RefreshEvent, ShardHealthMonitor, ShardRebalancer,
                        TopologyRefresher, TouchTable)
 from .hosts import (NIC_100GBE, NIC_400GBE, TPU_ICI, CoPartitionedPlacement,
                     HostLinkSpec, HostShardTier, cut_edge_fraction,
@@ -34,8 +36,8 @@ from .storage_sim import (INTEL_OPTANE, SAMSUNG_980PRO, HostBurstResult,
                           model_burst, price_sharded_burst,
                           required_accesses, simulate_burst)
 from .tiers import (ConstantBufferTier, DeviceCacheTier, GatherPlan,
-                    KVSlotTier, ShardedStorageTier, StorageTier, Tier,
-                    build_plan)
+                    KVSlotTier, ShardedStorageTier, StorageTier,
+                    TenantCacheTier, Tier, build_plan, record_tier_metrics)
 from .topology import (TieredTopologyStore, TopologyGatherReport,
                        admission_names, host_sampling_time, make_admission,
                        register_admission)

@@ -1,6 +1,6 @@
-"""Dynamic storage access accumulator (paper §3.2), the port's copy of the
-per-batch and merged-window parts of `repro.core.accumulator` (the
-deadline policy waits for the serve slice).
+"""Dynamic storage access accumulator (paper §3.2), the port's copy of
+`repro.core.accumulator`: the per-batch merge depth, the merged window,
+and the serve plane's deadline-bounded window policy.
 
 Sampling runs ahead of training and the storage requests of consecutive
 mini-batches merge until the outstanding accesses cross the Eq. 2-3
@@ -82,6 +82,67 @@ def merge_window(node_lists) -> MergedWindow:
     return MergedWindow(unique_nodes=unique,
                         inverse=inverse.astype(np.int64),
                         offsets=offsets)
+
+
+@dataclasses.dataclass
+class DeadlineWindowConfig:
+    max_window: int = 16            # depth cap — same buffer-memory guard as
+                                    # AccumulatorConfig.max_merge_iters
+    ema: float = 0.7                # smoothing for the service estimate
+    init_request_s: float = 2e-4    # cold-start per-request service guess
+    safety: float = 1.5             # close early by this factor over the
+                                    # estimate (estimate error eats slack,
+                                    # not the SLO)
+
+
+class DeadlineWindowPolicy:
+    """Deadline-bounded twin of `merge_depth` for ONLINE serving windows.
+
+    Training merges a fixed lookahead depth because epochs have no deadlines;
+    a serving window instead keeps admitting compatible in-flight requests
+    until the OLDEST staged request's slack is spent: service must start by
+
+        close_by = arrival + deadline - safety * est_service(n_staged)
+
+    for that request to have any chance of meeting its SLO.  The per-request
+    service estimate is an EMA over completed windows' measured service, so
+    the close bound tightens as windows deepen and the estimate converges —
+    the serving analogue of the accumulator's redirection-rate EMA.
+    `max_window` keeps the same buffer-memory guard the merge depth has.
+    """
+
+    def __init__(self, config: DeadlineWindowConfig | None = None):
+        self.config = config or DeadlineWindowConfig()
+        self._request_s = self.config.init_request_s
+
+    @property
+    def est_request_s(self) -> float:
+        return self._request_s
+
+    def observe(self, service_s: float, n_requests: int) -> None:
+        """Feed one completed window's measured service time."""
+        if n_requests <= 0 or service_s < 0:
+            return
+        a = self.config.ema
+        self._request_s = a * self._request_s \
+            + (1 - a) * service_s / n_requests
+
+    def est_service_s(self, n_staged: int) -> float:
+        return self._request_s * max(n_staged, 1)
+
+    def full(self, n_staged: int) -> bool:
+        return n_staged >= self.config.max_window
+
+    def close_by(self, oldest_arrival_s: float, oldest_deadline_s: float,
+                 n_staged: int) -> float:
+        """Latest virtual time the window can start service and still meet
+        the oldest staged request's deadline (never before its arrival)."""
+        slack_close = (oldest_arrival_s + oldest_deadline_s
+                       - self.config.safety * self.est_service_s(n_staged))
+        return max(oldest_arrival_s, slack_close)
+
+    def reset(self) -> None:
+        self._request_s = self.config.init_request_s
 
 
 class DynamicAccessAccumulator:

@@ -1,13 +1,13 @@
 """Declarative data-plane composition, the port's subset of
 `repro.core.dataplane`: `DataPlaneSpec`, the tier-kind registry with the
 `window_cache`, `device_store`, `constant_buffer`, `storage`,
-`sharded_storage`, `host_storage` and `kv_slots` kinds, the paper's host
-planes (`gids`, `bam`, `mmap`, `gids-async`, `pinned-host`) with their
-merged (`gids-merged*`), topology (`gids-topo*`), sharded
-(`gids-sharded`, `gids-merged-sharded`) and cluster (`gids-hosts`,
+`sharded_storage`, `host_storage`, `tenant_cache` and `kv_slots` kinds,
+the paper's host planes (`gids`, `bam`, `mmap`, `gids-async`,
+`pinned-host`) with their merged (`gids-merged*`), topology (`gids-topo*`),
+sharded (`gids-sharded`, `gids-merged-sharded`) and cluster (`gids-hosts`,
 `gids-hosts-merged`) presets, the device-resident `gids-device` preset,
-and the serve engine's `serve-kv` preset.  The GNN-serving presets wait
-for ROADMAP.md Queue 1 item 9.
+the GNN serve engine's `serve-gnn` and `serve-gnn-shared` presets, and
+the LM serve engine's `serve-kv` preset.
 
     plane = DataPlaneSpec.preset("gids").build(graph, features,
                                                device="cuda")
@@ -27,7 +27,8 @@ from .sharding import ReplicatedPlacement, make_placement
 from .software_cache import WindowBufferedCache
 from .storage_sim import StorageTimeline
 from .tiers import (ConstantBufferTier, DeviceCacheTier, DeviceStoreTier,
-                    KVSlotTier, ShardedStorageTier, StorageTier, Tier)
+                    KVSlotTier, ShardedStorageTier, StorageTier,
+                    TenantCacheTier, Tier)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +74,14 @@ class BuildContext:
     # serve engine KV slot pool
     slots: int = 0
     bytes_per_slot: int = 0
+    # multi-tenant serving (per-tenant cache partitions)
+    tenants: int = 1
+    tenant_quotas: Any = None         # per-tenant capacity shares, None=equal
 
     _KNOBS = ("cache_lines", "cache_ways", "window_depth", "cbuf_fraction",
               "cbuf_selection", "seed", "n_shards", "placement",
-              "replication_factor", "n_hosts", "co_partition")
+              "replication_factor", "n_hosts", "co_partition", "tenants",
+              "tenant_quotas")
 
     def absorb(self, config: Any) -> "BuildContext":
         for k in self._KNOBS:
@@ -192,6 +197,17 @@ def _make_host_storage(ctx: BuildContext) -> Tier:
                          co_partition=ctx.co_partition, seed=ctx.seed)
 
 
+@register_tier_kind("tenant_cache")
+def _make_tenant_cache(ctx: BuildContext) -> Tier:
+    """Per-tenant partitioned device software cache for the serve plane
+    (`TenantCacheTier`): the line budget is split by tenant quota and a
+    tenant only fills and evicts inside its own partition."""
+    return TenantCacheTier(ctx.cache_lines, ctx.cache_ways,
+                           tenants=ctx.tenants, quotas=ctx.tenant_quotas,
+                           seed=ctx.seed, features=ctx.features,
+                           device=ctx.device)
+
+
 @register_tier_kind("kv_slots")
 def _make_kv_slots(ctx: BuildContext, slots=None, bytes_per_slot=None) -> Tier:
     slots = ctx.slots if slots is None else slots
@@ -201,11 +217,6 @@ def _make_kv_slots(ctx: BuildContext, slots=None, bytes_per_slot=None) -> Tier:
 
 
 _PRESETS: dict[str, "DataPlaneSpec"] = {}
-
-#: The reference's other presets, by the ROADMAP.md Queue 1 item that
-#: ports them.
-_UNPORTED_PRESETS = dict.fromkeys(("serve-gnn", "serve-gnn-shared"),
-                                  "item 9, GNN serve")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,11 +296,6 @@ class DataPlaneSpec:
 
     @staticmethod
     def preset(name: str, **overrides) -> "DataPlaneSpec":
-        if name in _UNPORTED_PRESETS:
-            raise NotImplementedError(
-                f"data-plane preset {name!r} is not ported yet (ROADMAP.md "
-                f"Queue 1 {_UNPORTED_PRESETS[name]}); ported: "
-                f"{DataPlaneSpec.names()}")
         try:
             spec = _PRESETS[name]
         except KeyError:
@@ -499,6 +505,26 @@ DataPlaneSpec.register(DataPlaneSpec(
                 "store on the GPU, the cache access and tiered gather as "
                 "CUDA kernels, in front of the constant pinned-host buffer "
                 "and direct storage."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="serve-gnn",
+    tiers=(tier("tenant_cache"), tier("constant_buffer", fraction=0.05),
+           tier("storage")),
+    pricing="overlapped", lookahead=False,
+    description="Online GNN inference plane: per-tenant partitioned device "
+                "cache (quota-bounded eviction: a noisy tenant cannot "
+                "evict another tenant's hot set) over a small pinned-host "
+                "hot set and direct storage.  No epoch lookahead; request "
+                "windows are deadline-bounded by the serve engine."))
+
+DataPlaneSpec.register(DataPlaneSpec(
+    name="serve-gnn-shared",
+    tiers=(tier("window_cache", window_depth=0),
+           tier("constant_buffer", fraction=0.05), tier("storage")),
+    pricing="overlapped", lookahead=False,
+    description="The serve plane without tenant isolation: one shared "
+                "random-eviction cache all tenants contend for, the "
+                "noisy-neighbour baseline."))
 
 DataPlaneSpec.register(DataPlaneSpec(
     name="serve-kv",

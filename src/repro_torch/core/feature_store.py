@@ -226,7 +226,7 @@ class TieredFeatureStore:
     def plan(self, node_ids: np.ndarray) -> GatherPlan:
         return build_plan(self.tiers, node_ids)
 
-    def _host_rows(self, node_ids: np.ndarray) -> torch.Tensor:
+    def host_rows(self, node_ids: np.ndarray) -> torch.Tensor:
         """features[node_ids] staged on the host and copied to the device."""
         return self._stager.to_device(self._stager.stage(node_ids))
 
@@ -238,7 +238,7 @@ class TieredFeatureStore:
         plan = self.plan(node_ids)
         rows = getattr(plan.tiers[0], "last_rows", None)
         if rows is None or len(rows) != len(node_ids):
-            rows = self._host_rows(node_ids)
+            rows = self.host_rows(node_ids)
         report = GatherReport.from_plan(
             plan, bytes_per_row=self.feature_dim * self.itemsize)
         self.last_plan = plan
@@ -264,7 +264,7 @@ class TieredFeatureStore:
                                  merged.batch_multiplicity(), inverses)
         rows_list = getattr(self.tiers[0], "last_window_rows", None)
         if rows_list is None:
-            rows_u = self._host_rows(unique)
+            rows_u = self.host_rows(unique)
             rows_list = [rows_u.index_select(0, torch.from_numpy(
                 np.asarray(inv, np.int64)).to(self.device))
                 for inv in inverses]

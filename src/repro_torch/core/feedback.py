@@ -22,14 +22,17 @@ and two controllers spend that signal:
 Both are virtual-time controllers: decisions are functions of priced
 telemetry, never the wall clock, so adaptive runs stay bit-reproducible
 and bit-identical to the reference.  The serve plane's `QuotaController`
-comes with ROADMAP.md Queue 1 item 9, and the controllers' tracer hooks
-with item 8.
+closes the same loop over a `TenantCacheTier`'s per-tenant quotas from
+measured miss traffic.  Every committed action is also an instant event
+and a counter on the controller's `tracer` (the no-op tracer by default).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+from repro_torch.obs import NULL_TRACER
 
 
 class TouchTable:
@@ -304,6 +307,9 @@ class ShardRebalancer:
         # it for fault-enabled planes), a degraded shard triggers a DRAIN —
         # evacuate its measured-hot rows — ahead of the imbalance trigger
         self.monitor = None
+        # observability plane: commits emit instant events + commit-cost
+        # counters; the shared no-op tracer records nothing
+        self.tracer = NULL_TRACER
 
     def observe(self, node_ids: np.ndarray,
                 counts: np.ndarray | None = None) -> None:
@@ -359,6 +365,14 @@ class ShardRebalancer:
             burst=self._bursts, n_moved=int(len(moved)), cost_s=float(cost),
             imbalance_before=float(burst.imbalance),
             predicted_saving_s=float(saving), reason=reason))
+        self.tracer.instant(
+            "migration", track="controller", cat="controller",
+            burst=self._bursts, n_moved=int(len(moved)),
+            cost_s=float(cost), imbalance_before=float(burst.imbalance),
+            reason=reason)
+        self.tracer.metrics.counter("controller.migrations").inc()
+        self.tracer.metrics.counter("controller.migration_cost_s").inc(
+            float(cost))
 
     @property
     def n_migrations(self) -> int:
@@ -408,6 +422,7 @@ class TopologyRefresher:
         self.cooldown = int(cooldown)
         self.debt = AmortizedCost(horizon)
         self.events: list[RefreshEvent] = []
+        self.tracer = NULL_TRACER
         self._bursts = 0
         self._cooldown = 0
 
@@ -434,7 +449,86 @@ class TopologyRefresher:
         self.events.append(RefreshEvent(
             burst=self._bursts, n_moved=int(n_moved), cost_s=float(cost),
             predicted_saving_s=float(saving)))
+        self.tracer.instant(
+            "topo_refresh", track="controller", cat="controller",
+            burst=self._bursts, n_moved=int(n_moved), cost_s=float(cost),
+            predicted_saving_s=float(saving))
+        self.tracer.metrics.counter("controller.refreshes").inc()
+        self.tracer.metrics.counter("controller.refresh_cost_s").inc(
+            float(cost))
 
     @property
     def n_refreshes(self) -> int:
+        return len(self.events)
+
+
+class QuotaController:
+    """Online re-partitioning of per-tenant cache quotas from measured miss
+    traffic.
+
+    Watches a `TenantCacheTier`'s cumulative per-tenant hit/access counters;
+    every `interval` served windows it computes each tenant's share of the
+    interval's MISSES (the demand signal), EMA-smooths it, floors every
+    tenant at `floor` so a quiet tenant is never squeezed to zero, and
+    calls `TenantCacheTier.repartition` when the smoothed target moves any
+    quota by more than `deadband`.  Repartitioning rebuilds partitions
+    cold, a real cost paid in subsequent misses."""
+
+    def __init__(self, tier, *, interval: int = 8, floor: float = 0.05,
+                 alpha: float = 0.5, deadband: float = 0.05):
+        if getattr(tier, "tenants", 1) < 2:
+            raise ValueError("quota control needs at least two tenants")
+        if not 0.0 < floor < 1.0 / tier.tenants:
+            raise ValueError(
+                f"floor {floor} must be in (0, 1/{tier.tenants}) so every "
+                "tenant keeps a positive share with room to differentiate")
+        self.tier = tier
+        self.interval = int(interval)
+        self.floor = float(floor)
+        self.alpha = float(alpha)
+        self.deadband = float(deadband)
+        total = sum(tier.quotas)
+        self.demand = np.array([q / total for q in tier.quotas], np.float64)
+        self.events: list[tuple[int, tuple[float, ...]]] = []
+        self._windows = 0
+        self._snap = self._counters()
+        self.tracer = NULL_TRACER
+
+    def _counters(self) -> list[tuple[int, int]]:
+        return [(c.stats.hits, c.stats.accesses)
+                for c in self.tier.partitions]
+
+    def step(self) -> bool:
+        """One tick per served window; True iff a repartition committed."""
+        self._windows += 1
+        if self._windows % self.interval:
+            return False
+        now = self._counters()
+        misses = np.array([(a1 - a0) - (h1 - h0)
+                           for (h0, a0), (h1, a1)
+                           in zip(self._snap, now)], np.float64)
+        self._snap = now
+        total = misses.sum()
+        if total <= 0:
+            return False
+        self.demand = (1.0 - self.alpha) * self.demand \
+            + self.alpha * (misses / total)
+        share = self.demand / self.demand.sum()
+        t = self.tier.tenants
+        target = self.floor + (1.0 - t * self.floor) * share
+        cur_total = sum(self.tier.quotas)
+        current = np.array([q / cur_total for q in self.tier.quotas])
+        if np.abs(target - current).max() < self.deadband:
+            return False
+        quotas = tuple(float(q) for q in target)
+        self.tier.repartition(quotas)
+        self.events.append((self._windows, quotas))
+        self.tracer.instant(
+            "quota_repartition", track="controller", cat="controller",
+            window=self._windows, quotas=list(quotas))
+        self.tracer.metrics.counter("controller.repartitions").inc()
+        return True
+
+    @property
+    def n_repartitions(self) -> int:
         return len(self.events)

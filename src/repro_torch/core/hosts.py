@@ -30,8 +30,8 @@ its requester, on its own host.
 never added, and the plane prices bit-identically to the single-host
 plane.  Features and blocks are bit-identical across all host counts and
 placements: hosts change pricing and telemetry, never bytes.  The link
-presets are the reference's data; `HostShardTier.record_metrics` comes
-with the metrics registry (ROADMAP.md Queue 1 item 8).
+presets are the reference's data; `HostShardTier.record_metrics` folds
+the static placement telemetry into a metrics registry.
 """
 from __future__ import annotations
 
@@ -322,6 +322,18 @@ class HostShardTier(ShardedStorageTier):
         n = len(self.features)
         primary = np.asarray(self.placement.shard_of(np.arange(n)), np.int16)
         return float(np.mean(self._requester != primary))
+
+    def record_metrics(self, registry) -> None:
+        """Fold the cluster's static placement telemetry into a
+        MetricsRegistry (repro_torch.obs): host count, the placement's
+        expected cross-host request share, and the edge-cut fraction the
+        metis-lite partitioner minimizes.  Per-burst realized traffic lands
+        in the registry separately via `StorageTimeline._note_burst`."""
+        registry.gauge("hosts.n_hosts").set(self.n_hosts)
+        registry.gauge("hosts.placement_remote_fraction").set(
+            self.remote_fraction())
+        registry.gauge("hosts.cut_edge_fraction").set(
+            self.cut_edge_fraction())
 
     # -- checkpoint ------------------------------------------------------------
     def state_dict(self) -> dict:

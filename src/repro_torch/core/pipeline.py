@@ -45,7 +45,12 @@ faults and feedback change pricing, routing and telemetry, never bytes.
 
 The features of a `Batch` are a tensor on the loader's device; reports and
 priced floats stay host-side Python and numpy, bit-identical to the
-reference.  Tracing waits for the obs slice (ROADMAP.md Queue 1 item 8).
+reference.  A `tracer` (repro_torch.obs) observes the loader: it
+wall-clocks the `plan_next`, `execute` and `execute_window` stages, builds
+one priced span tree per batch and window (with per-shard and fault
+overlays), and receives burst, hop, tier and controller telemetry in its
+metrics registry.  Tracing never feeds back: every priced float, block and
+feature row is the same with the default no-op tracer.
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.obs import NULL_TRACER, attach_burst_spans
 from repro_torch.sampling.ladies import ladies_sample_blocks
 from repro_torch.sampling.neighbor import SampledBlocks, host_sample_blocks
 from repro_torch.sampling.tiered import tiered_sample_blocks
@@ -67,6 +73,7 @@ from .feature_store import GatherReport
 from .feedback import ShardHealthMonitor, ShardRebalancer, TopologyRefresher
 from .prefetch import PrefetchEngine
 from .storage_sim import INTEL_OPTANE, SSDSpec, StorageTimeline
+from .tiers import record_tier_metrics
 from .topology import TieredTopologyStore
 
 #: Sampler names the loader knows how to drive.  `LoaderConfig` validates
@@ -169,7 +176,7 @@ class GIDSDataLoader:
                  config: LoaderConfig | None = None,
                  ssd: SSDSpec = INTEL_OPTANE,
                  train_ids: np.ndarray | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", tracer=None):
         self.graph = graph
         self.config = cfg = config or LoaderConfig()
         self.rng = np.random.default_rng(cfg.seed)
@@ -288,6 +295,25 @@ class GIDSDataLoader:
         self._requests_per_iter = 0
         self.prefetch = (PrefetchEngine(self, self.plane.prefetch_depth)
                          if self.plane.prefetch_depth > 0 else None)
+        # observability plane: off by default through the shared no-op
+        # tracer.  An enabled tracer observes stage timings, builds per-batch
+        # span trees and receives burst and controller telemetry in its
+        # registry, but never feeds back into sampling or pricing
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._batch_index = 0
+        self._window_index = 0
+        if self.tracer.enabled:
+            self.timeline.metrics = self.tracer.metrics
+            if self.topo is not None:
+                self.topo.timeline.metrics = self.tracer.metrics
+            if self.rebalancer is not None:
+                self.rebalancer.tracer = self.tracer
+            if self.topo_refresher is not None:
+                self.topo_refresher.tracer = self.tracer
+            if hasattr(backstop, "record_metrics"):
+                # static cluster telemetry, computed once: it changes only
+                # with a commit
+                backstop.record_metrics(self.tracer.metrics)
 
     def _sample_one(self) -> SampledBlocks:
         cfg = self.config
@@ -298,7 +324,8 @@ class GIDSDataLoader:
                 # same math, same RNG stream: blocks bit-identical to the
                 # host sampler, plus per-hop priced TopologyGatherReports
                 return tiered_sample_blocks(self.graph, self.topo, seeds,
-                                            cfg.fanouts, self.rng)
+                                            cfg.fanouts, self.rng,
+                                            tracer=self.tracer)
             return host_sample_blocks(self.graph, seeds, cfg.fanouts,
                                       self.rng)
         if cfg.sampler == "ladies":
@@ -344,23 +371,32 @@ class GIDSDataLoader:
 
     def plan_next(self) -> BatchPlan:
         """Stage 1: sampling + admit-side staging."""
-        depth = self._refill_lookahead()
-        snap, blocks = self._lookahead.popleft()
-        self._win_idx = max(0, self._win_idx - 1)
-        self._requests_per_iter = blocks.num_requests
+        with self.tracer.stage("plan_next") as sp:
+            depth = self._refill_lookahead()
+            snap, blocks = self._lookahead.popleft()
+            self._win_idx = max(0, self._win_idx - 1)
+            self._requests_per_iter = blocks.num_requests
+            sp.modelled(float(getattr(blocks, "sample_time_s", 0.0)))
         return BatchPlan(blocks=blocks, merge_depth=depth, snapshot=snap)
 
     def execute(self, plan: BatchPlan) -> Batch:
         """Stage 2: data movement + pricing."""
         blocks = plan.blocks
-        rows, report = self.store.gather(blocks.all_nodes)
-        self.accumulator.update(report.n_requests, report.redirected)
-        outstanding = self.accumulator.outstanding(blocks.num_requests)
-        gather_s = self.plane.price(self.timeline, report, outstanding)
-        t = gather_s + self._feedback_step(blocks.all_nodes, None)
-        # a topology plane priced the sampling stage when the blocks were
-        # drawn (plan_next); prep covers both
-        sample_s = float(getattr(blocks, "sample_time_s", 0.0))
+        with self.tracer.stage("execute") as sp:
+            rows, report = self.store.gather(blocks.all_nodes)
+            self.accumulator.update(report.n_requests, report.redirected)
+            outstanding = self.accumulator.outstanding(blocks.num_requests)
+            prev_burst = self.timeline.shard_burst
+            gather_s = self.plane.price(self.timeline, report, outstanding)
+            charge = self._feedback_step(blocks.all_nodes, None)
+            t = gather_s + charge
+            # a topology plane priced the sampling stage when the blocks
+            # were drawn (plan_next); prep covers both
+            sample_s = float(getattr(blocks, "sample_time_s", 0.0))
+            sp.modelled(t + sample_s)
+            if self.tracer.enabled:
+                self._trace_batch(blocks, report, gather_s, charge,
+                                  t + sample_s, prev_burst)
         return Batch(blocks=blocks, features=rows, report=report,
                      prep_time_s=t + sample_s,
                      merge_depth=plan.merge_depth, sample_time_s=sample_s)
@@ -384,6 +420,94 @@ class GIDSDataLoader:
             charge += self.topo_refresher.step()
         return charge
 
+    # -- span trees (enabled tracer only) ---------------------------------------
+    def _trace_hops(self, root, blocks) -> None:
+        for r in getattr(blocks, "hop_reports", ()):
+            hbm, host, sto = r.pages_by_tier
+            root.child(f"sample/hop{r.hop}", float(r.time_s), cat="sample",
+                       edge_reads=r.n_edge_reads, frontier=r.n_frontier,
+                       pages_hbm=hbm, pages_host=host, pages_storage=sto)
+
+    def _trace_batch(self, blocks, report, gather_s: float, charge: float,
+                     prep_s: float, prev_burst) -> None:
+        """One per-batch span tree: the root's duration is exactly
+        `Batch.prep_time_s`, and its sequential children partition it into
+        the per-hop sampling, the priced gather and any feedback charge;
+        per-shard and per-host drains (and fault recovery sub-events)
+        overlay the gather span on their own tracks."""
+        tr = self.tracer
+        root = tr.batch("batch", track="pipeline", index=self._batch_index,
+                        requests=report.n_requests)
+        self._trace_hops(root, blocks)
+        g = root.child("gather", float(gather_s), cat="gather",
+                       n_storage=report.n_storage,
+                       n_host=report.n_host_hits, n_hbm=report.n_hbm_hits)
+        burst = self.timeline.shard_burst
+        if burst is not None and burst is not prev_burst:
+            attach_burst_spans(g, burst)
+        if charge:
+            root.child("feedback", float(charge), cat="feedback")
+        root.close(float(prep_s))
+        self._record_batch_metrics(blocks, gather_s, charge, prep_s)
+        self._batch_index += 1
+
+    def _trace_window(self, plans, window_report, gather_s: float,
+                      charge: float, burst_s: float, prev_burst) -> None:
+        """A merged window's spans: one window span (merged gather and
+        feedback, on its own track) whose duration is the window's priced
+        burst, and one batch tree per plan whose gather child is the
+        batch's amortized share of that burst."""
+        tr = self.tracer
+        win = tr.batch("window", track="window", cat="window",
+                       index=self._window_index, batches=len(plans),
+                       requests=window_report.window_requests,
+                       unique=window_report.n_unique)
+        g = win.child("merged_gather", float(gather_s), cat="gather",
+                      n_storage=window_report.n_storage,
+                      n_lines=window_report.n_storage_lines,
+                      n_host=window_report.n_host_hits,
+                      n_hbm=window_report.n_hbm_hits)
+        burst = self.timeline.shard_burst
+        if burst is not None and burst is not prev_burst:
+            attach_burst_spans(g, burst)
+        if charge:
+            win.child("feedback", float(charge), cat="feedback")
+        win.close(float(burst_s))
+        m = tr.metrics
+        if window_report.n_unique:
+            m.histogram("merged.dedup_factor").observe(
+                window_report.window_requests / window_report.n_unique)
+        if window_report.n_storage_lines:
+            m.histogram("merged.coalesce_factor").observe(
+                window_report.n_storage_unique
+                / window_report.n_storage_lines)
+        prep = burst_s / len(plans)
+        for p in plans:
+            sample_s = float(getattr(p.blocks, "sample_time_s", 0.0))
+            root = tr.batch("batch", track="pipeline",
+                            index=self._batch_index,
+                            window=self._window_index)
+            self._trace_hops(root, p.blocks)
+            root.child("gather_share", float(prep), cat="gather",
+                       window=self._window_index)
+            root.close(float(prep + sample_s))
+            self._record_batch_metrics(p.blocks, prep, 0.0, prep + sample_s)
+            self._batch_index += 1
+        self._window_index += 1
+
+    def _record_batch_metrics(self, blocks, gather_s: float, charge: float,
+                              prep_s: float) -> None:
+        """Fold one batch's per-stage priced seconds and the tier stack's
+        cumulative hit telemetry into the registry."""
+        m = self.tracer.metrics
+        m.counter("pipeline.batches").inc()
+        m.counter("stage_s.sample").inc(
+            float(getattr(blocks, "sample_time_s", 0.0)))
+        m.counter("stage_s.gather").inc(float(gather_s))
+        m.counter("stage_s.feedback").inc(float(charge))
+        m.counter("stage_s.prep").inc(float(prep_s))
+        record_tier_metrics(self.store.tiers, m)
+
     def plan_window(self) -> list[BatchPlan]:
         """Stage 1 for a whole merged window: plan `merge_depth`
         consecutive batches (the depth the first plan reports)."""
@@ -399,29 +523,41 @@ class GIDSDataLoader:
         stage each unique row once and expand it per batch on the device,
         and price the window as one line-coalesced storage burst amortized
         equally across its batches."""
-        merged = self.accumulator.merge([p.blocks.all_nodes for p in plans])
-        # retire the consumed window entries and stage the NEXT window's:
-        # the one merged access pins its fills by the upcoming reuse
-        self.store.retire_window(len(plans))
-        self._sync_window()
-        rows_list, reports, window_report = self.store.gather_merged(merged)
-        # one telemetry update per window: the unique split
-        self.accumulator.update(window_report.n_requests,
-                                window_report.redirected)
-        gather_s = self.timeline.price_merged_burst(window_report)
-        # the window is one priced burst, so it is one feedback tick over
-        # the unique request set with its window multiplicity; a migration
-        # charge amortizes across the window's batches like the burst
-        burst_s = gather_s + self._feedback_step(
-            merged.unique_nodes, merged.batch_multiplicity())
-        prep = burst_s / len(plans)
-        out = []
-        for p, rows, rep in zip(plans, rows_list, reports, strict=True):
-            # each batch's own priced sampling time rides on its share
-            sample_s = float(getattr(p.blocks, "sample_time_s", 0.0))
-            out.append(Batch(blocks=p.blocks, features=rows, report=rep,
-                             prep_time_s=prep + sample_s,
-                             merge_depth=len(plans), sample_time_s=sample_s))
+        with self.tracer.stage("execute_window", n_plans=len(plans)) as sp:
+            merged = self.accumulator.merge(
+                [p.blocks.all_nodes for p in plans])
+            # retire the consumed window entries and stage the NEXT
+            # window's: the one merged access pins its fills by the
+            # upcoming reuse
+            self.store.retire_window(len(plans))
+            self._sync_window()
+            rows_list, reports, window_report = \
+                self.store.gather_merged(merged)
+            # one telemetry update per window: the unique split
+            self.accumulator.update(window_report.n_requests,
+                                    window_report.redirected)
+            prev_burst = self.timeline.shard_burst
+            gather_s = self.timeline.price_merged_burst(window_report)
+            # the window is one priced burst, so it is one feedback tick
+            # over the unique request set with its window multiplicity; a
+            # migration charge amortizes across the window's batches like
+            # the burst
+            charge = self._feedback_step(merged.unique_nodes,
+                                         merged.batch_multiplicity())
+            burst_s = gather_s + charge
+            sp.modelled(burst_s)
+            if self.tracer.enabled:
+                self._trace_window(plans, window_report, gather_s, charge,
+                                   burst_s, prev_burst)
+            prep = burst_s / len(plans)
+            out = []
+            for p, rows, rep in zip(plans, rows_list, reports, strict=True):
+                # each batch's own priced sampling time rides on its share
+                sample_s = float(getattr(p.blocks, "sample_time_s", 0.0))
+                out.append(Batch(blocks=p.blocks, features=rows, report=rep,
+                                 prep_time_s=prep + sample_s,
+                                 merge_depth=len(plans),
+                                 sample_time_s=sample_s))
         return out
 
     def __iter__(self) -> Iterator[Batch]:
@@ -539,10 +675,11 @@ class GIDSDataLoader:
         elif self.health is not None:
             self.health.reset()
         # and the merge-depth EMA, so the resumed loader makes the fresh
-        # loader's decisions, and the timelines' cross-burst telemetry, so
-        # it never reports the pre-restore run's last burst as its own
-        # (the tracer's reset comes with the obs slice, item 8)
+        # loader's decisions, and the timelines' cross-burst telemetry and
+        # the tracer's spans and registry, so it never reports the
+        # pre-restore run's last burst as its own
         self.accumulator.reset_telemetry()
         self.timeline.reset_telemetry()
         if self.topo is not None:
             self.topo.timeline.reset_telemetry()
+        self.tracer.reset()

@@ -7,9 +7,9 @@ are a model of that system, not a measurement of the card the port runs on.
 Besides the single-queue pricing this holds the sharded namespace's
 per-shard bursts (`coalesce_lines_by_shard`, `price_sharded_burst`), the
 cluster's host bursts (`StorageTimeline.price_host_burst`), migration
-pricing and the fault injector's seam (`StorageTimeline.injector`).  The
-metrics registry the reference folds burst telemetry into waits for the
-observability slice (ROADMAP.md Queue 1 item 8).
+pricing, the fault injector's seam (`StorageTimeline.injector`) and the
+metrics registry every priced burst folds its telemetry into
+(`StorageTimeline.metrics`, wired by an enabled tracer).
 
 Units: seconds, bytes.  IO granularity is the paper's 4 KB cache line.
 """
@@ -316,12 +316,19 @@ class StorageTimeline:
     its own queue at its own device and the batch completes at the max over
     shards — and `shard_burst` keeps the most recent per-shard drain
     telemetry (`ShardedBurstResult`: straggler shard, queue imbalance).
+    With a `MetricsRegistry` attached on `metrics` (the tracer wires one),
+    every priced burst also folds its telemetry into the registry —
+    observation only, never feeding back into pricing.
     """
 
     def __init__(self, spec: SSDSpec, n_ssd: int = 1, shard_specs=None):
         self.spec, self.n_ssd = spec, n_ssd
         self.shard_specs = tuple(shard_specs) if shard_specs else None
         self._shard_burst: ShardedBurstResult | None = None
+        # observability plane (repro_torch.obs): an attached
+        # MetricsRegistry receives per-burst telemetry via `_note_burst`;
+        # None records nothing (the default, and the no-op tracer's path)
+        self.metrics = None
         # multi-host plane (core/hosts.py): when the loader wires a tuple of
         # HostLinkSpec here, sharded bursts route through `price_host_burst`
         # — each shard is a host and remote lines pay its link; None keeps
@@ -351,10 +358,32 @@ class StorageTimeline:
         self._shard_burst = None
 
     def _note_burst(self, burst: ShardedBurstResult) -> None:
-        """Record one priced burst for the `shard_burst` accessor (the
-        reference also folds it into an attached metrics registry, which
-        comes with ROADMAP.md Queue 1 item 8).  Pricing never reads it."""
+        """Record one priced burst: keeps the `shard_burst` accessor fresh
+        and, when a registry is attached, folds imbalance / remote-traffic /
+        fault-recovery telemetry into it.  Observation only — pricing never
+        reads anything written here."""
         self._shard_burst = burst
+        m = self.metrics
+        if m is None:
+            return
+        m.counter("storage.bursts").inc()
+        m.counter("storage.ssd_bytes").inc(burst.ssd_bytes)
+        m.histogram("storage.imbalance").observe(burst.imbalance)
+        m.gauge("storage.last_straggler").set(burst.straggler)
+        if isinstance(burst, HostBurstResult):
+            m.histogram("hosts.remote_fraction").observe(
+                burst.remote_fraction)
+            m.counter("hosts.remote_lines").inc(sum(burst.remote_lines))
+            m.counter("hosts.link_s").inc(sum(burst.link_s))
+        fault_src = getattr(burst, "local_burst", None) or burst
+        recovery = getattr(fault_src, "recovery_events", None)
+        if callable(recovery):
+            for kind, shard, args in recovery():
+                m.counter(f"faults.{kind}_events").inc()
+                if "lines" in args:
+                    m.counter(f"faults.{kind}_lines").inc(args["lines"])
+                if "saving_s" in args:
+                    m.counter("faults.hedge_saving_s").inc(args["saving_s"])
 
     def _fault_adjust(self, burst: ShardedBurstResult,
                       bytes_per_row: int,

@@ -6,6 +6,9 @@ gather plan that folds a tier stack over one batch.
                        cache (`software_cache`) decides hits, fills and
                        evictions, and a row store on the loader's device
                        serves the hits through `tiered_gather`
+  TenantCacheTier    — the serve plane's cache: one numpy cache partition
+                       per tenant, their lines concatenated in one row
+                       store on the device, served the same way
   DeviceStoreTier    — device cache metadata + device row store + the
                        `tiered_gather` kernel, via `device_store`; a merged
                        window goes through `tiered_gather_unique`
@@ -17,8 +20,6 @@ gather plan that folds a tier stack over one batch.
                        change pricing and telemetry, never bytes: the rows
                        still come from the device tiers or the host
   KVSlotTier         — the serve engine's KV-cache slot pool
-
-The serve plane's tenant tier waits for ROADMAP.md Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -155,14 +156,35 @@ def _event_split(events: dict, order: list[str]) -> dict[str, float]:
             for a, b in zip(order, order[1:])}
 
 
-class DeviceCacheTier(_TierBase):
-    """Device tier of the host planes (§3.4): the numpy window-buffered
-    cache keeps the metadata on the host, and a row store `rows`
-    (num_lines, D) on the loader's device, zeros at first, holds the row of
-    every resident line at index `set * ways + way`, the index `lookup`
-    returns.
+def _line_fillers(before: np.ndarray, after: np.ndarray,
+                  node_ids: np.ndarray, slots: np.ndarray,
+                  name: str) -> np.ndarray:
+    """(L,) int32: for each line whose tag changed from `before` to `after`
+    (flat tag arrays), the index of the request whose node is the new tag;
+    -1 elsewhere.  That request must be a staged miss of the probe."""
+    changed = np.flatnonzero(after != before)
+    filler = np.full(len(after), -1, np.int32)
+    if len(changed):
+        order = np.argsort(node_ids, kind="stable")
+        at = np.minimum(np.searchsorted(node_ids[order], after[changed]),
+                        len(order) - 1)
+        idx = order[at]
+        if (node_ids[idx] != after[changed]).any() \
+                or (slots[idx] >= 0).any():
+            raise ValueError(
+                f"{name}: a line was filled by a request that is not a "
+                "staged miss of this probe; node ids must be unique within "
+                "a probe")
+        filler[changed] = idx
+    return filler
 
-    Each probe runs the numpy access, then:
+
+class _RowStoreTier(_TierBase):
+    """A numpy-metadata cache tier whose resident rows live in a row store
+    `rows` (L, D) on the loader's device, zeros at first, one row per cache
+    line at the index `lookup_slots` returns.
+
+    Each probe runs the subclass's numpy access (`_access`), then:
       - `slots` = the post-probe line of each hit, -1 elsewhere (a miss, a
         bypass, or a hit whose line a later fill of its set took);
       - the host stages `features[node_ids[i]]` for the slot -1 rows only
@@ -172,10 +194,10 @@ class DeviceCacheTier(_TierBase):
         into `last_window_rows`);
       - `store_fill` writes each line whose tag changed during the probe
         from the staged row of the request whose node is its new tag.
-    So after every probe each resident line l holds
-    `features[tags.flat[l]]` bit for bit.  Node ids must be unique within
-    a probe, as a batch's or a window's are: the new tag of a line is then
-    a miss of the probe, whose staged row is real.
+    So after every probe each resident line l holds `features[tag[l]]` bit
+    for bit.  Node ids must be unique within a probe, as a batch's or a
+    window's are: the new tag of a line is then a miss of the probe, whose
+    staged row is real.
 
     On CUDA, `last_split_ms` holds the last probe's time per stage (the
     numpy probe with its slots and fillers, and host staging, on the host
@@ -185,33 +207,26 @@ class DeviceCacheTier(_TierBase):
 
     latency_class = "hbm"
 
-    def __init__(self, cache: WindowBufferedCache, features: np.ndarray,
-                 name: str = "hbm-cache", line_bytes: int = IO_BYTES,
-                 device: str | torch.device = "cuda"):
-        self.cache = cache
-        self.name = name
-        self.line_bytes = line_bytes
+    def _init_row_store(self, features: np.ndarray, num_lines: int,
+                        device: str | torch.device) -> None:
         self.device = resolve_device(device)
         host = torch.from_numpy(np.ascontiguousarray(features))
         self._stager = HostStager(host, self.device)
-        self.rows = torch.zeros((cache.num_sets * cache.ways, host.shape[1]),
+        self.rows = torch.zeros((num_lines, host.shape[1]),
                                 dtype=host.dtype, device=self.device)
         self.last_rows: torch.Tensor | None = None
         self.last_window_rows: list[torch.Tensor] | None = None
         self.last_split_ms: dict[str, float] = {}
         self.last_counts: dict[str, int] = {}
 
-    @property
-    def capacity_bytes(self) -> int:
-        return self.cache.num_sets * self.cache.ways * self.line_bytes
+    def _flat_tags(self) -> np.ndarray:
+        """The tag of every line of the row store, in its order."""
+        raise NotImplementedError
 
-    @property
-    def window_depth(self) -> int:
-        return self.cache.window_depth
-
-    @property
-    def window(self) -> deque:
-        return self.cache.window
+    def _access(self, node_ids: np.ndarray,
+                multiplicity: np.ndarray | None) -> np.ndarray:
+        """The numpy cache access of one probe: its hit mask."""
+        raise NotImplementedError
 
     def probe(self, node_ids: np.ndarray) -> np.ndarray:
         return self._probe_rows(np.asarray(node_ids))
@@ -219,45 +234,24 @@ class DeviceCacheTier(_TierBase):
     def probe_merged(self, node_ids: np.ndarray, multiplicity: np.ndarray,
                      inverses: list[np.ndarray] | None = None) -> np.ndarray:
         """One deduplicated probe for a whole merged window: each node
-        consumes its full reuse multiplicity at once (the caller has
-        already retired the consumed window entries and pushed the next
-        window's).  `inverses` holds one index array per batch into
-        `node_ids`; each batch's rows land in `last_window_rows`.  Without
-        them (the tier below the top of a merged fold) the rows of
-        `node_ids` land in `last_rows`."""
+        consumes its full multiplicity at once (on a windowed cache the
+        caller has already retired the consumed window entries and pushed
+        the next window's).  `inverses` holds one index array per batch (or
+        request) into `node_ids`; each one's rows land in
+        `last_window_rows`.  Without them (the tier below the top of a
+        merged fold) the rows of `node_ids` land in `last_rows`."""
         return self._probe_rows(np.asarray(node_ids), multiplicity, inverses)
-
-    def _fillers(self, before: np.ndarray, node_ids: np.ndarray,
-                 slots: np.ndarray) -> np.ndarray:
-        """(L,) int32: for each line whose tag changed since `before`, the
-        index of the request whose node is the new tag; -1 elsewhere."""
-        after = self.cache.tags.reshape(-1)
-        changed = np.flatnonzero(after != before)
-        filler = np.full(len(after), -1, np.int32)
-        if len(changed):
-            order = np.argsort(node_ids, kind="stable")
-            at = np.minimum(np.searchsorted(node_ids[order], after[changed]),
-                            len(order) - 1)
-            idx = order[at]
-            if (node_ids[idx] != after[changed]).any() \
-                    or (slots[idx] >= 0).any():
-                raise ValueError(
-                    f"{self.name}: a line was filled by a request that is "
-                    "not a staged miss of this probe; node ids must be "
-                    "unique within a probe")
-            filler[changed] = idx
-        return filler
 
     def _probe_rows(self, node_ids: np.ndarray,
                     multiplicity: np.ndarray | None = None,
                     inverses: list[np.ndarray] | None = None) -> np.ndarray:
         t0 = time.perf_counter()
-        before = self.cache.tags.reshape(-1).copy()
-        hits = (self.cache.access(node_ids) if multiplicity is None
-                else self.cache.access_merged(node_ids, multiplicity))
+        before = self._flat_tags().copy()
+        hits = self._access(node_ids, multiplicity)
         slots = np.full(len(node_ids), -1, np.int32)
         slots[hits] = self.lookup_slots(node_ids[hits])
-        filler = self._fillers(before, node_ids, slots)
+        filler = _line_fillers(before, self._flat_tags(), node_ids, slots,
+                               self.name)
         staged_mask = slots < 0
         t1 = time.perf_counter()
         host = self._stager.stage(node_ids, needed=staged_mask)
@@ -298,6 +292,59 @@ class DeviceCacheTier(_TierBase):
                 | _event_split(events, ["start", "h2d", "gather", "fill"])
         return hits
 
+    def device_rows(self) -> torch.Tensor:
+        """The resident row store on the loader's device."""
+        return self.rows
+
+    def _reset_row_store(self, num_lines: int) -> None:
+        """Back to the built state: wait for the copies out of the pinned
+        staging buffer, and zero the row store (reallocated when the line
+        count changed)."""
+        self._stager.reset()
+        if self.rows.shape[0] == num_lines:
+            self.rows.zero_()
+        else:
+            self.rows = torch.zeros((num_lines, self.rows.shape[1]),
+                                    dtype=self.rows.dtype,
+                                    device=self.device)
+        self.last_rows = self.last_window_rows = None
+
+
+class DeviceCacheTier(_RowStoreTier):
+    """Device tier of the host planes (§3.4): the numpy window-buffered
+    cache keeps the metadata on the host, and a row store `rows`
+    (num_lines, D) on the loader's device holds the row of every resident
+    line at index `set * ways + way`, the index `lookup` returns.  Probes
+    serve and fill it as `_RowStoreTier` sets out."""
+
+    def __init__(self, cache: WindowBufferedCache, features: np.ndarray,
+                 name: str = "hbm-cache", line_bytes: int = IO_BYTES,
+                 device: str | torch.device = "cuda"):
+        self.cache = cache
+        self.name = name
+        self.line_bytes = line_bytes
+        self._init_row_store(features, cache.num_sets * cache.ways, device)
+
+    @property
+    def capacity_bytes(self) -> int:
+        return self.cache.num_sets * self.cache.ways * self.line_bytes
+
+    @property
+    def window_depth(self) -> int:
+        return self.cache.window_depth
+
+    @property
+    def window(self) -> deque:
+        return self.cache.window
+
+    def _flat_tags(self) -> np.ndarray:
+        return self.cache.tags.reshape(-1)
+
+    def _access(self, node_ids: np.ndarray,
+                multiplicity: np.ndarray | None) -> np.ndarray:
+        return (self.cache.access(node_ids) if multiplicity is None
+                else self.cache.access_merged(node_ids, multiplicity))
+
     def admit(self, node_ids: np.ndarray) -> None:
         self.cache.push_window(node_ids)
 
@@ -305,15 +352,178 @@ class DeviceCacheTier(_TierBase):
         """Resident cache line per node (post-probe), -1 if absent."""
         return self.cache.lookup(node_ids)
 
-    def device_rows(self) -> torch.Tensor:
-        """The resident row store on the loader's device."""
-        return self.rows
+    def reset(self) -> None:
+        self._reset_row_store(self.rows.shape[0])
+        self.cache.reset()
+
+
+class TenantCacheTier(_RowStoreTier):
+    """Device software-cache tier partitioned per tenant, with priced
+    isolation: the serving twin of `DeviceCacheTier`.
+
+    The line budget is split into per-tenant `WindowBufferedCache`
+    partitions (window_depth=0: serving has no epoch lookahead, so eviction
+    is random within the partition).  A request fills and evicts ONLY
+    inside its own tenant's partition, so a noisy tenant cannot evict
+    another tenant's hot set, and the misses a quota creates are priced in
+    the storage burst like any other miss.
+
+    The serving engine announces who is asking via `stage_tenants(
+    tenant_of)` immediately before the gather: one tenant id per node
+    offered to the next `probe` / `probe_merged`.  This tier must therefore
+    sit FIRST in the stack.  A node two tenants share is served from (and
+    filled into) the first requester's partition for that window.
+    Un-staged probes default to tenant 0.
+
+    The partitions' lines are concatenated in one row store on the device,
+    partition t's lines after the budgets of the partitions before it (the
+    offsets `lookup_slots` returns), and served as `_RowStoreTier` sets
+    out.  `lookup_slots` is tenant-agnostic, so a hit may be served from
+    another tenant's partition; every resident line holds its tag's row
+    either way.  A `repartition` rebuilds the partitions cold, and with
+    them the row store: zeroed, at the new total of lines.
+    """
+
+    def __init__(self, num_lines: int, ways: int = 8, tenants: int = 1,
+                 quotas: Sequence[float] | None = None, seed: int = 0,
+                 line_bytes: int = IO_BYTES, name: str = "hbm-tenant-cache",
+                 *, features: np.ndarray,
+                 device: str | torch.device = "cuda"):
+        if tenants < 1:
+            raise ValueError(f"need at least one tenant, got {tenants}")
+        if quotas is None:
+            quotas = (1.0 / tenants,) * tenants
+        self.ways = ways
+        self.line_bytes = line_bytes
+        self.name = name
+        self._num_lines = int(num_lines)
+        self._seed = seed
+        self._tenants = tenants
+        self._init_quotas = self._check_quotas(quotas)
+        self.quotas = self._init_quotas
+        self.partitions = self._build_partitions(self.quotas)
+        self._staged: np.ndarray | None = None
+        self._init_row_store(features, self.total_lines, device)
+
+    def _check_quotas(self, quotas: Sequence[float]) -> tuple[float, ...]:
+        quotas = tuple(float(q) for q in quotas)
+        if len(quotas) != self._tenants:
+            raise ValueError(
+                f"{len(quotas)} quotas for {self._tenants} tenants — pass "
+                "one capacity share per tenant")
+        if any(q <= 0 for q in quotas):
+            raise ValueError(f"quotas must be positive, got {quotas}")
+        return quotas
+
+    def _build_partitions(self, quotas: tuple[float, ...]
+                          ) -> tuple[WindowBufferedCache, ...]:
+        total = sum(quotas)
+        # per-partition line budget: quota share rounded down to a whole
+        # number of sets, floored at one set; partition seeds derive from
+        # the tenant index, so a tenant's hash placement is stable across
+        # repartitions
+        return tuple(
+            WindowBufferedCache(
+                max(self.ways,
+                    (int(self._num_lines * q / total) // self.ways)
+                    * self.ways),
+                self.ways, window_depth=0, seed=self._seed + 17 * t)
+            for t, q in enumerate(quotas))
+
+    def repartition(self, quotas: Sequence[float]) -> None:
+        """Online quota re-split (the `QuotaController`'s actuator): rebuild
+        the per-tenant partitions at the new shares, cold, and the row
+        store with them.  Each tenant's cumulative hit/access counters
+        carry over, so `hit_ratio(tenant)` stays a run-long signal."""
+        quotas = self._check_quotas(quotas)
+        stats = [c.stats for c in self.partitions]
+        self.partitions = self._build_partitions(quotas)
+        for cache, old in zip(self.partitions, stats):
+            cache.stats = old
+        self.quotas = quotas
+        self._reset_row_store(self.total_lines)
+
+    @property
+    def tenants(self) -> int:
+        return len(self.partitions)
+
+    @property
+    def total_lines(self) -> int:
+        return sum(c.num_sets * c.ways for c in self.partitions)
+
+    @property
+    def capacity_bytes(self) -> int:
+        return self.total_lines * self.line_bytes
+
+    def partition_lines(self, tenant: int) -> int:
+        c = self.partitions[tenant]
+        return c.num_sets * c.ways
+
+    def stage_tenants(self, tenant_of: np.ndarray) -> None:
+        """Announce the requesting tenant of each node in the NEXT probe —
+        (n,) int array positionally aligned with the node list the fold
+        will offer.  Consumed by that one probe."""
+        t = np.asarray(tenant_of)
+        if len(t) and (t.min() < 0 or t.max() >= self.tenants):
+            raise ValueError(
+                f"tenant ids in [{t.min()}, {t.max()}] out of range for "
+                f"{self.tenants} partitions")
+        self._staged = t
+
+    def _take_staged(self, n: int) -> np.ndarray:
+        t = self._staged
+        self._staged = None
+        if t is None:
+            return np.zeros(n, np.int64)
+        if len(t) != n:
+            raise ValueError(
+                f"staged {len(t)} tenant ids but the fold offered {n} "
+                "nodes — the tenant tier must be first in the stack")
+        return t
+
+    def _flat_tags(self) -> np.ndarray:
+        return np.concatenate([c.tags.reshape(-1) for c in self.partitions])
+
+    def _access(self, node_ids: np.ndarray,
+                multiplicity: np.ndarray | None) -> np.ndarray:
+        tenant = self._take_staged(len(node_ids))
+        hits = np.zeros(len(node_ids), dtype=bool)
+        for tid, cache in enumerate(self.partitions):
+            m = tenant == tid
+            if not m.any():
+                continue
+            mult = None if multiplicity is None else multiplicity[m]
+            hits[m] = cache.access(node_ids[m], multiplicity=mult)
+        return hits
+
+    def lookup_slots(self, node_ids: np.ndarray) -> np.ndarray:
+        """Resident line per node across the concatenated partitions
+        (partition t's lines offset by the budgets before it), -1 if the
+        node is resident in no partition.  Read-only, tenant-agnostic."""
+        out = np.full(len(node_ids), -1, np.int64)
+        offset = 0
+        for cache in self.partitions:
+            slot = cache.lookup(np.asarray(node_ids))
+            found = (out == -1) & (slot >= 0)
+            out[found] = slot[found] + offset
+            offset += cache.num_sets * cache.ways
+        return out
+
+    def hit_ratio(self, tenant: int) -> float:
+        return self.partitions[tenant].stats.hit_ratio
+
+    def hit_ratios(self) -> tuple[float, ...]:
+        """Cumulative per-tenant hit ratios — the quota controller's input,
+        rolled up into `ServeResult.tenant_hit_ratios`."""
+        return tuple(c.stats.hit_ratio for c in self.partitions)
 
     def reset(self) -> None:
-        self._stager.reset()
-        self.cache.reset()
-        self.rows.zero_()
-        self.last_rows = self.last_window_rows = None
+        # full post-construction state: construction-time quotas restored,
+        # partitions cold, fresh counters, the row store zeroed
+        self.quotas = self._init_quotas
+        self.partitions = self._build_partitions(self.quotas)
+        self._staged = None
+        self._reset_row_store(self.total_lines)
 
 
 class DeviceStoreTier(_TierBase):
@@ -781,3 +991,22 @@ def build_plan_merged(tiers: Sequence[Tier], unique_nodes: np.ndarray,
     partition guarantee."""
     return build_plan(tiers, unique_nodes, multiplicity=multiplicity,
                       inverses=inverses)
+
+
+def record_tier_metrics(tiers: Sequence[Tier], registry) -> None:
+    """Fold the tier stack's cumulative cache telemetry into a
+    MetricsRegistry (repro_torch.obs): one ``tier.<name>.hit_ratio`` gauge
+    per cache-bearing tier, per-tenant gauges for a partitioned tier.
+    Observation only, nothing here feeds back into probe or admission."""
+    for tier in tiers:
+        name = getattr(tier, "name", type(tier).__name__)
+        stats = getattr(getattr(tier, "cache", None), "stats", None)
+        if stats is not None and stats.accesses:
+            registry.gauge(f"tier.{name}.hit_ratio").set(stats.hit_ratio)
+            registry.gauge(f"tier.{name}.accesses").set(stats.accesses)
+            registry.gauge(f"tier.{name}.evictions").set(stats.evictions)
+        ratios = getattr(tier, "hit_ratios", None)
+        if callable(ratios):
+            for tenant, ratio in enumerate(ratios()):
+                registry.gauge(
+                    f"tier.{name}.tenant{tenant}.hit_ratio").set(ratio)

@@ -25,8 +25,9 @@ host memory, never a storage read).  What a storage read costs stays the
 priced `StorageTimeline` time of `hop_report`, which is unchanged.
 
 Assignments, page slots, scores, reports, refreshes and priced times are
-bit-identical to the reference.  The metrics hook waits for the
-observability slice (ROADMAP.md Queue 1 item 8).
+bit-identical to the reference.  With a metrics registry on the store's
+timeline (an enabled tracer wires one), every priced hop also folds its
+edge-page counters into it.
 """
 from __future__ import annotations
 
@@ -361,6 +362,16 @@ class TieredTopologyStore:
             shard_pages=shard_pages)
         report = dataclasses.replace(
             report, time_s=self.timeline.price_topology_hop(report))
+        m = self.timeline.metrics
+        if m is not None:
+            # observability plane: per-hop edge-page telemetry (cumulative
+            # counters the per-tier hit-ratio gauges are derived from)
+            m.counter("topo.hops").inc()
+            m.counter("topo.edge_reads").inc(report.n_edge_reads)
+            for tier_name, count in zip(("hbm", "host", "storage"),
+                                        pages_by_tier):
+                m.counter(f"topo.pages_{tier_name}").inc(count)
+            m.counter("topo.sample_s").inc(report.time_s)
         return report
 
     # -- online re-admission (the adaptive policy's refresh loop) --------------

@@ -8,6 +8,7 @@ device sampler (`sampling.neighbor.device_sample_blocks`).
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -93,6 +94,35 @@ class DeviceCSR:
     indptr: torch.Tensor
     indices: torch.Tensor
     num_nodes: int
+
+
+def disjoint_union(graphs: Sequence["CSRGraph"],
+                   name: str = "union") -> CSRGraph:
+    """Concatenate CSR graphs into one graph over disjoint node-id ranges:
+    graph k's node v becomes `sum(n_i for i < k) + v`, with no edges between
+    components.  This is the multi-tenant colocation layout — each tenant
+    serves its own dataset, all tenants share one feature plane, one cache,
+    and one storage device — and the node ranges let a workload pin each
+    tenant's traffic to its own component.
+    """
+    if not graphs:
+        raise ValueError("need at least one graph")
+    n_total = sum(g.num_nodes for g in graphs)
+    e_total = sum(g.num_edges for g in graphs)
+    idt = index_dtype(max(n_total, e_total))
+    indptr = np.zeros(n_total + 1, dtype=np.int64)
+    indices = np.empty(e_total, dtype=idt)
+    node_off, edge_off = 0, 0
+    for g in graphs:
+        indptr[node_off + 1:node_off + g.num_nodes + 1] = \
+            edge_off + g.indptr[1:]
+        indices[edge_off:edge_off + g.num_edges] = \
+            g.indices.astype(idt) + node_off
+        node_off += g.num_nodes
+        edge_off += g.num_edges
+    return CSRGraph(indptr=indptr, indices=indices, num_nodes=n_total,
+                    feature_dim=max(g.feature_dim for g in graphs),
+                    name=name)
 
 
 def from_edge_list(src: np.ndarray, dst: np.ndarray, num_nodes: int,

@@ -13,8 +13,9 @@ reads them through the store's device data path
 (`TieredTopologyStore.frontier_gather`: on CUDA one `frontier_read` launch
 per hop, hot words from device memory and the rest read in place from the
 adjacency in pinned host memory); those words equal `graph.indices[pos]`
-bit for bit, so the blocks are unchanged.  Tracing waits for the obs
-slice (ROADMAP.md Queue 1).
+bit for bit, so the blocks are unchanged.  A `tracer` (repro_torch.obs)
+wall-clocks the whole sampling sweep as one `sample` stage and attaches the
+summed priced hop time to it.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import TYPE_CHECKING, Sequence
 import numpy as np
 
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.obs import NULL_TRACER
 from .neighbor import SampledBlocks, run_sample_hops
 
 if TYPE_CHECKING:   # core imports this module through the loader
@@ -42,7 +44,12 @@ class TieredSampledBlocks(SampledBlocks):
 
 def tiered_sample_blocks(graph: CSRGraph, topo: TieredTopologyStore,
                          seeds: np.ndarray, fanouts: Sequence[int],
-                         rng: np.random.Generator) -> TieredSampledBlocks:
+                         rng: np.random.Generator,
+                         tracer=None) -> TieredSampledBlocks:
+    """`tracer` wall-clocks the sweep and attaches its priced time:
+    observation only, the blocks and reports are the same without it."""
+    if tracer is None:
+        tracer = NULL_TRACER
     reports: list[TopologyGatherReport] = []
 
     def price_hop(hop: int, read_pos: np.ndarray, n_frontier: int) -> None:
@@ -51,10 +58,13 @@ def tiered_sample_blocks(graph: CSRGraph, topo: TieredTopologyStore,
         reports.append(topo.hop_report(read_pos, hop=hop,
                                        n_frontier=n_frontier))
 
-    hop_nodes, all_nodes, n_req = run_sample_hops(
-        graph, seeds, fanouts, rng, hop_cb=price_hop,
-        read_words=topo.frontier_gather)
+    with tracer.stage("sample", cat="sample", seeds=len(seeds)) as sp:
+        hop_nodes, all_nodes, n_req = run_sample_hops(
+            graph, seeds, fanouts, rng, hop_cb=price_hop,
+            read_words=topo.frontier_gather)
+        sample_time_s = float(sum(r.time_s for r in reports))
+        sp.modelled(sample_time_s)
     return TieredSampledBlocks(
         seeds=seeds, hop_nodes=hop_nodes, all_nodes=all_nodes,
         num_requests=n_req, hop_reports=reports,
-        sample_time_s=float(sum(r.time_s for r in reports)))
+        sample_time_s=sample_time_s)

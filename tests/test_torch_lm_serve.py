@@ -368,5 +368,7 @@ def test_unported_families_configs_and_options_raise():
     (tier,) = DataPlaneSpec.preset("serve-kv").build_stack(slots=3,
                                                            bytes_per_slot=10)
     assert isinstance(tier, KVSlotTier) and tier.capacity_bytes == 30
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        DataPlaneSpec.preset("serve-gnn")
+    # the GNN-serving preset is ported (ROADMAP.md Queue 1 item 9, done)
+    spec = DataPlaneSpec.preset("serve-gnn")
+    assert [t.kind for t in spec.tiers] == ["tenant_cache", "constant_buffer",
+                                            "storage"]

@@ -6,6 +6,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
@@ -112,18 +113,25 @@ def test_three_sgd_steps_match_reference():
 
 def test_unported_options_raise_with_their_roadmap_item():
     """The host planes, merged windows, the topology plane, the sharded
-    and cluster planes and the LADIES sampler are ported; the GNN-serving
-    presets still raise, naming their ROADMAP item, and an unknown sampler
-    raises ValueError when the config is built."""
-    for name in ("serve-gnn", "serve-gnn-shared"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 9"):
-            DataPlaneSpec.preset(name)
+    and cluster planes, the LADIES sampler and the GNN-serving presets are
+    ported; the LM families and configs (ROADMAP item 10) and the
+    distributed options (item 11) still raise, naming their item, and an
+    unknown sampler raises ValueError when the config is built."""
     for name in ("gids", "gids-async", "bam", "mmap", "pinned-host",
                  "gids-merged", "gids-merged-async", "gids-topo",
                  "gids-topo-merged", "gids-sharded", "gids-merged-sharded",
-                 "gids-hosts", "gids-hosts-merged"):
+                 "gids-hosts", "gids-hosts-merged", "serve-gnn",
+                 "serve-gnn-shared"):
         assert DataPlaneSpec.preset(name).name == name
+    from repro_torch import configs
+    from repro_torch.models.transformer import LM
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 10"):
+        configs.get("mamba2_1_3b")
+    cfg = configs.get("qwen2_1_5b", reduced=True)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 11"):
+        LM(dataclasses.replace(cfg, attn_impl="flash_stub"), device="cpu")
     assert LoaderConfig().data_plane == "gids"
     spec = DataPlaneSpec.preset("gids-device", merge_execute=True,
                                 topology=True)
@@ -162,7 +170,10 @@ def test_port_imports_no_jax():
                  "kernels.tiered_gather", "core.device_store",
                  "core.software_cache", "core.prefetch", "graph.datasets",
                  "core.sharding", "core.hosts", "core.faults",
-                 "core.feedback", "core.storage_sim", "graph.synthetic"):
+                 "core.feedback", "core.storage_sim", "graph.synthetic",
+                 "obs", "obs.metrics", "obs.trace", "obs.validate",
+                 "serve.workload", "serve.admission", "serve.gnn_engine",
+                 "core.tiers", "core.dataplane", "graph.csr"):
         assert f"repro_torch.{name}\n" in out.stdout
     pattern = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)\b)",
                          re.M)
