@@ -17,8 +17,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (f32) or 1e-2 (bf16) of its reference row in norm, at the sweep of
    tests/test_kernels.py, at the serving path's prefill, decode and a
    sliding-window shape, at decode edges (offsets 0 and Sk - 1, and one
-   sequence) in both types, and on the tensor-core path at hd 16, 32 and
-   a ragged Sq of 1000 in bf16; the split-KV merge flash_combine within
+   sequence) in both types, on the tensor-core path at hd 16, 32 and
+   a ragged Sq of 1000 in bf16, and at recurrentgemma-2b's hd 256 (H 10,
+   MQA, window 2048: a decode tick of 8 slots at offsets 64-4000 of a
+   4096-row cache, a 3000-token prompt over 4096 keys) in both types, and
+   at the shapes of phase 5b's other paths in both types (whisper-small's
+   non-causal encoder over 4 x 1500 frames, its decoder's prompt, decode
+   tick and cross-attention decode over the 1500-row memory; a decode tick
+   of 8 slots over a 4096-row cache and a 1000-token prompt for
+   internvl2-1b, hd 64 with 7 query heads a kv head, and for llama4 and
+   arctic, hd 128 with 5 and 7); the
+   build line lists every kernel function that spills (`spills`, from
+   nvcc -Xptxas -v); the split-KV merge flash_combine within
    1e-5 in f32 and 1e-2 in bf16).  cache_access runs uniform rounds at
    B 8192 and 28000 and a round whose ids all hash into 4 sets, and
    cache_bucket runs at its largest set count and refuses one more.
@@ -186,6 +196,31 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    memory.  After the counted run, `torch.profiler` traces one 1024-token
    prefill and PROFILE_TICKS decode ticks at 8 active slots and prints the
    card's busy time per tick and its top kernels.
+5b. The other LM families at full width, each model built, served and
+   freed before the next (FAMILIES, FAMILY_GATES).  f32 gates with TF32
+   off, as phase 5's: recurrentgemma-2b at full width and depth over a
+   2300-token prompt (its local window of 2048 masks in prefill and
+   decode; one engine prompt of 2100 tokens) and arctic-480b at 1 layer
+   (top-2 MoE with the dense residual, capacity factor E / k: lossless
+   routing, so that engine and greedy tokens may be held equal): flash
+   against
+   einsum logits and prefill + 16 decode steps within 1e-3, engine tokens
+   equal to greedy decoding.  Then bf16 through ServeEngine with
+   `attn_impl="flash"`, 8 slots: recurrentgemma-2b, mamba2-1.3b and
+   internvl2-1b (text requests) at full width and depth, and
+   llama4-maverick at 2 layers (one dense, one MoE) and arctic at 1 at
+   full width with their published capacity factors, over phase 5's 16
+   prompt lengths with the last one 3000, 4096 rows; internvl2 also decodes
+   a static batch of 4 prompts with 256 patches each; whisper-small
+   prefills 4 x 1500 frames and decodes 32 tokens through the raw steps.
+   Gates: every request retires with its tokens, the slot pool ends
+   empty, every logit is finite, and `flash_attention` launched exactly
+   (attention layers) x (prefills + decode steps) (+ 12 encoder layers a
+   whisper prefill and 12 cross-attention layers a whisper decode step)
+   and `flash_combine` once per attention layer per decode step (the
+   cross-attention layers too).  Prints each model's
+   parameters, init seconds and peak, prefill ms by prompt length, decode
+   ms per tick, tokens/s and peak memory.
 6. One JSON line `{"kernels": [...]}` and, last, one JSON line naming the
    device.
 
@@ -272,7 +307,25 @@ def card_and_build(torch):
                     if "registers" in line]
              for name, log in logs.items()}
     emit({"phase": "build", "seconds": round(seconds, 3),
-          "compiled": sorted(logs), "ptxas": ptxas})
+          "compiled": sorted(logs), "ptxas": ptxas,
+          "spills": {name: ptxas_spills(log) for name, log in logs.items()}})
+
+
+def ptxas_spills(log: str) -> dict:
+    """The functions of one nvcc -Xptxas -v report that spill: mangled name
+    -> its 'N bytes stack frame, N bytes spill stores, N bytes spill loads'
+    line."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif fn and "spill stores" in line:
+            counts = [int(w) for w in line.replace(",", " ").split()
+                      if w.isdigit()]
+            if any(counts[1:]):       # spill stores or loads
+                out[fn] = line.strip()
+            fn = None
+    return out
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -651,7 +704,10 @@ def kernel_frontier_read(torch, timer, np):
 
 def kernel_store_fill(torch, timer, gen):
     """The row-store fill of one step: about 30% of 16384 lines refilled
-    from an (8192, 1024) f32 staged buffer, in place, exact."""
+    from an (8192, 1024) f32 staged buffer, in place, exact.  The library
+    yardstick is `index_copy_` of the filled lines' rows, their source
+    gathered by `index_select` in the same timed call (no one call does
+    both; the filled lines and their fillers are found outside it)."""
     from repro_torch.kernels import ops, ref
     L, B, D = 16384, 8192, 1024
     rows = torch.randn((L, D), generator=gen, device="cuda")
@@ -666,6 +722,10 @@ def kernel_store_fill(torch, timer, gen):
     torch.cuda.synchronize()
     check(torch.equal(got, want), "store_fill")
     n_filled = int((last_filler >= 0).sum())
+    lines = (last_filler >= 0).nonzero()[:, 0]
+    src = last_filler[lines].long()
+    lib = rows.clone().index_copy_(0, lines, staged.index_select(0, src))
+    check(torch.equal(lib, want), "store_fill: index_copy_ yardstick")
     nbytes = 2 * n_filled * D * 4 + L * 4
     row = {"phase": "kernel", "name": "store_fill", "dtype": "float32",
            "shape": [L, B, D], "filled": n_filled, "max_abs_err": 0.0,
@@ -674,7 +734,10 @@ def kernel_store_fill(torch, timer, gen):
            "plain_ms": timer(lambda r: ref.store_fill_ref(r, last_filler,
                                                           staged),
                              setup=lambda: (rows.clone(),)),
-           "library_ms": None, **bound(nbytes)}
+           "library_ms": timer(lambda r: r.index_copy_(
+               0, lines, staged.index_select(0, src)),
+               setup=lambda: (rows.clone(),)),
+           **bound(nbytes)}
     emit(row)
     return summary([row])
 
@@ -753,6 +816,10 @@ def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000,
     emit(row)
     order, start = cd.bucket_by_set(ids_d, num_sets)
     want_order, want_start = cd.bucket_by_set_ref(ids_d, num_sets)
+    # the library yardstick: the stable torch.sort of the keys (the order
+    # without the start offsets; the keys are computed outside the timer)
+    key = torch.where(ids_d >= 0, cd._set_of(ids_d, num_sets).long(),
+                      num_sets)
     torch.cuda.synchronize()
     check(torch.equal(order, want_order) and torch.equal(start, want_start),
           f"cache_bucket B {B} hot_sets {hot_sets}")
@@ -762,7 +829,7 @@ def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000,
               "kernel_ms": timer(lambda: cd.bucket_by_set(ids_d, num_sets)),
               "plain_ms": timer(lambda: cd.bucket_by_set_ref(ids_d,
                                                              num_sets)),
-              "library_ms": None,
+              "library_ms": timer(lambda: torch.sort(key, stable=True)),
               **bound(B * 4 + B * 4 + (num_sets + 2) * 4)}
     emit(bucket)
     return summary([row]), summary([bucket])
@@ -836,20 +903,52 @@ FLASH_CASES = (
        ("prefill_hd16", 2, 4, 2, 1000, 1000, 16, True, None, ("bfloat16",)),
        ("prefill_hd32", 2, 8, 2, 1000, 1100, 32, True, None, ("bfloat16",)),
        ("prefill_ragged", 1, 12, 2, 1000, 2048, 128, True, None,
-        ("bfloat16",))])
+        ("bfloat16",)),
+       # hd 256, recurrentgemma-2b's local attention (H 10, MQA, window
+       # 2048): a decode tick of 8 slots at offsets over 64-4000 of a
+       # 4096-row cache, and a 3000-token prompt over 4096 keys
+       ("decode_rg", 8, 10, 1, 1, 4096, 256, True, 2048,
+        ("bfloat16", "float32")),
+       ("prefill_rg", 1, 10, 1, 3000, 4096, 256, True, 2048,
+        ("bfloat16", "float32"))]
+    # the other phase-5b paths' shapes: whisper-small's non-causal encoder
+    # (4 x 1500 frames), its decoder's prompt, decode tick and
+    # cross-attention decode over the 1500-row memory; internvl2-1b (GQA
+    # group 7, hd 64) and llama4 (group 5) and arctic (group 7) at hd 128,
+    # a decode tick of 8 slots over a 4096-row cache and a 1000-token
+    # prompt over it
+    + [(name, *c, ("bfloat16", "float32")) for name, c in (
+        ("enc_whisper", (4, 12, 12, 1500, 1500, 64, False, None)),
+        ("prefill_whisper", (4, 12, 12, 32, 64, 64, True, None)),
+        ("decode_whisper", (4, 12, 12, 1, 64, 64, True, None)),
+        ("xdecode_whisper", (4, 12, 12, 1, 1500, 64, False, None)),
+        ("decode_internvl2", (8, 14, 2, 1, 4096, 64, True, None)),
+        ("prefill_internvl2", (1, 14, 2, 1000, 4096, 64, True, None)),
+        ("decode_llama4", (8, 40, 8, 1, 4096, 128, True, None)),
+        ("prefill_llama4", (1, 40, 8, 1000, 4096, 128, True, None)),
+        ("decode_arctic", (8, 56, 8, 1, 4096, 128, True, None)),
+        ("prefill_arctic", (1, 56, 8, 1000, 4096, 128, True, None)))])
 
 #: flash_attention's gate per dtype: allclose's rtol = atol, and the
 #: largest error of one output row relative to its reference row
 FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
 FLASH_ROW_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 
+def _spread(lo, hi):
+    return lambda torch, B, Sk: torch.linspace(lo, hi, B, device="cuda")
+
+
 #: per-sequence offsets of the decode rows, read through the cache's view
+#: (None: the cross-attention memory, read whole, no offset)
 DECODE_OFFSETS = {
-    "decode": lambda torch, B, Sk: torch.linspace(64, 1900, B, device="cuda"),
+    "decode": _spread(64, 1900),
     "decode_edge": lambda torch, B, Sk: torch.tensor([0.0, Sk - 1] * (B // 2),
                                                      device="cuda"),
     "decode_b1": lambda torch, B, Sk: torch.full((B,), Sk - 1.0,
-                                                 device="cuda")}
+                                                 device="cuda"),
+    "decode_rg": _spread(64, 4000), "decode_whisper": _spread(32, 62),
+    "xdecode_whisper": None, "decode_internvl2": _spread(64, 4000),
+    "decode_llama4": _spread(64, 4000), "decode_arctic": _spread(64, 4000)}
 
 
 def _flash_inputs(torch, gen, case, dtype):
@@ -866,7 +965,9 @@ def _flash_inputs(torch, gen, case, dtype):
         k, v = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
         q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda"
                         ).to(dtype).transpose(1, 2)
-        offsets = DECODE_OFFSETS[name](torch, B, Sk).round().to(torch.int32)
+        if DECODE_OFFSETS[name] is not None:
+            offsets = DECODE_OFFSETS[name](torch, B, Sk).round().to(
+                torch.int32)
     else:
         q = torch.randn((B, H, Sq, hd), generator=gen,
                         device="cuda").to(dtype)
@@ -940,7 +1041,7 @@ def kernel_flash_attention(torch, timer, gen):
             else:
                 mask, is_causal = seen[:, None], False
             del seen
-            reps = 5 if name == "window_danube" else REPS
+            reps = 5 if name in ("window_danube", "prefill_rg") else REPS
             row = {"phase": "kernel", "name": "flash_attention",
                    "case": name, "dtype": dtype_name,
                    "shape": [B, H, KV, Sq, Sk, hd], "causal": causal,
@@ -961,13 +1062,15 @@ def kernel_flash_attention(torch, timer, gen):
     # the serving path's numbers: one decode tick's launch, and beside it
     # one prefill launch at a 1024-token prompt
     main = summary([rows[("decode", "bfloat16")]])
-    pre = rows[("prefill", "bfloat16")]
-    main.update({"prefill_ms": pre["kernel_ms"],
-                 "prefill_bound_ms": pre["bound_ms"],
-                 "prefill_bound_by": pre["bound_by"],
-                 "prefill_plain_ms": pre["plain_ms"],
-                 "prefill_library_ms": pre["library_ms"],
-                 "max_abs_err": max(r["max_abs_err"] for r in rows.values())})
+    for prefix, name in (("prefill", "prefill"), ("decode_hd256", "decode_rg"),
+                         ("prefill_hd256", "prefill_rg")):
+        row = rows[(name, "bfloat16")]
+        main.update({f"{prefix}_ms": row["kernel_ms"],
+                     f"{prefix}_bound_ms": row["bound_ms"],
+                     f"{prefix}_bound_by": row["bound_by"],
+                     f"{prefix}_plain_ms": row["plain_ms"],
+                     f"{prefix}_library_ms": row["library_ms"]})
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     return main
 
 
@@ -3049,25 +3152,51 @@ def _greedy(torch, model, params, prompt, n, max_seq):
     return toks
 
 
-def lm_gate_f32(torch, np):
-    """Phase 5, f32 gates at full width: flash against einsum logits, and
-    engine tokens against single-request greedy decoding.  GATE["tol"] is
-    the reference's own bound for decode against teacher forcing
-    (tests/test_decode_consistency.py:47); in f32 the two paths differ only
-    in summation order (online softmax, other matmul shapes)."""
+def _lm_config(torch, arch: str, f32: bool = False, layers=None):
+    """`arch`'s full published config on the flash path, `layers` to cut
+    the depth (the MoE models).  With `f32`, a gate's: f32 dtypes and, for
+    MoE, a capacity factor of E / k, so that the capacity
+    C = k N / E * E / k = N holds every token even if all pick one expert:
+    routing is lossless, as tests/test_decode_consistency.py:19-21 makes
+    it (exact for the power-of-two expert counts), and the engine's
+    batches route as single requests do.  Served in bf16, the MoE models
+    keep their published capacity factor."""
     import dataclasses
     from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(arch), attn_impl="flash")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                  compute_dtype=torch.float32)
+    if f32 and cfg.moe_experts:
+        cfg = dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    return cfg
+
+
+def lm_gate_f32(torch, np, arch="qwen2_1_5b", layers=None, gate=GATE,
+                engine_prompts=(7, 11, 5)):
+    """Phases 5 and 5b, f32 gates at full width: flash against einsum
+    logits, and engine tokens against single-request greedy decoding.
+    GATE["tol"] is the reference's own bound for decode against teacher
+    forcing (tests/test_decode_consistency.py:47); in f32 the two paths
+    differ only in summation order (online softmax, other matmul shapes,
+    the recurrences' scans)."""
+    import dataclasses
     from repro_torch.models.transformer import LM
     from repro_torch.serve import EngineConfig, Request, ServeEngine
-    base = dataclasses.replace(configs.get("qwen2_1_5b"),
-                               param_dtype=torch.float32,
-                               compute_dtype=torch.float32)
-    flash = LM(dataclasses.replace(base, attn_impl="flash"), device=DEVICE)
-    einsum = LM(base, device=DEVICE)
+    flash_cfg = _lm_config(torch, arch, f32=True, layers=layers)
+    flash = LM(flash_cfg, device=DEVICE)
+    einsum = LM(dataclasses.replace(flash_cfg, attn_impl="einsum"),
+                device=DEVICE)
+    t0 = time.perf_counter()
     params = flash.init(torch.Generator(device=DEVICE).manual_seed(0))
-    P, E = GATE["prompt"], GATE["steps"]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    P, E = gate["prompt"], gate["steps"]
     rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(0, base.vocab_size, (1, P + E))
+    toks = torch.from_numpy(rng.integers(0, flash_cfg.vocab_size, (1, P + E))
                             .astype(np.int32)).to(DEVICE)
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -3082,67 +3211,80 @@ def lm_gate_f32(torch, np):
                 params, toks[:, P + t:P + t + 1], cache,
                 torch.tensor([P + t], dtype=torch.int32, device=DEVICE))
             errs.append((lg[0, 0] - want[P + t]).abs().max().item())
-        check(bool(torch.isfinite(want).all()), "f32 gate: non-finite logits")
-        scale = want[:, :base.vocab_size].abs().max().item()
-    emit({"phase": "lm_gate_f32", "prompt": P, "decode_steps": E,
+        check(bool(torch.isfinite(want).all()),
+              f"{arch} f32 gate: non-finite logits")
+        scale = want[:, :flash_cfg.vocab_size].abs().max().item()
+        del want, cache
+    emit({"phase": "lm_gate_f32", "model": flash_cfg.name,
+          "layers": flash_cfg.num_layers, "prompt": P, "decode_steps": E,
           "forward_max_abs_err": fwd_err, "decode_max_abs_err": max(errs),
-          "logit_max_abs": scale, "tol": GATE["tol"],
+          "logit_max_abs": scale, "tol": gate["tol"], "init_s": init_s,
           "seconds": time.perf_counter() - t0})
-    check(fwd_err <= GATE["tol"] and max(errs) <= GATE["tol"],
-          f"f32 gate: flash forward {fwd_err}, prefill+decode {max(errs)} "
-          f"vs einsum forward (tol {GATE['tol']})")
+    check(fwd_err <= gate["tol"] and max(errs) <= gate["tol"],
+          f"{arch} f32 gate: flash forward {fwd_err}, prefill+decode "
+          f"{max(errs)} vs einsum forward (tol {gate['tol']})")
 
-    prompts = [rng.integers(0, base.vocab_size, n).astype(np.int32)
-               for n in (7, 11, 5)]
+    prompts = [rng.integers(0, flash_cfg.vocab_size, n).astype(np.int32)
+               for n in engine_prompts]
     N = 6
+    max_seq = max(64, max(engine_prompts) + N + 2)
     with torch.inference_mode():
-        engine = ServeEngine(flash, params, EngineConfig(slots=2, max_seq=64),
+        engine = ServeEngine(flash, params,
+                             EngineConfig(slots=2, max_seq=max_seq),
                              device=DEVICE)
         for i, p in enumerate(prompts):
             engine.submit(Request(rid=i, prompt=p, max_new_tokens=N))
         done = engine.run_until_drained()
-        greedy = {i: _greedy(torch, flash, params, p, N, 64)
+        greedy = {i: _greedy(torch, flash, params, p, N, max_seq)
                   for i, p in enumerate(prompts)}
     got = {r.rid: r.generated for r in done}
-    emit({"phase": "lm_engine_gate_f32", "engine": got, "greedy": greedy})
+    emit({"phase": "lm_engine_gate_f32", "model": flash_cfg.name,
+          "prompts": list(engine_prompts), "engine": got, "greedy": greedy})
     check(got == greedy and engine.kv_slots.occupancy == 0.0,
-          "f32 engine gate: engine tokens differ from greedy decoding")
+          f"{arch} f32 engine gate: engine tokens differ from greedy "
+          f"decoding")
+    del params, engine
+    torch.cuda.empty_cache()
 
 
-def lm_serve_path(torch, np):
-    """Phase 5, the main path: SERVE["requests"] requests at full width in
-    bf16 through ServeEngine, every attention layer through
-    flash_attention."""
-    import dataclasses
-    from repro_torch import configs
-    from repro_torch.kernels import _build
-    from repro_torch.models.transformer import LM
-    from repro_torch.serve import EngineConfig, Request, ServeEngine
-    cfg = dataclasses.replace(configs.get("qwen2_1_5b"), attn_impl="flash")
-    model = LM(cfg, device=DEVICE)
+def _init_timed(torch, model):
+    """Parameters drawn on the card from seed 0, the seconds it took, and
+    the peak bytes allocated while drawing them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    leaves = [params["embed"], params["final_norm"]["scale"]] + [
-        t for g in params["stacks"][0]["b0"].values() for t in g.values()]
-    n_params = sum(t.numel() for t in leaves)
-    check(n_params == 1_546_270_208, f"qwen2-1.5b has {n_params} params")
+    return params, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _serve_stream(torch, np, model, params, serve, lengths):
+    """`lengths` requests of random tokens (default_rng(1)) through a
+    ServeEngine of serve["slots"] slots and serve["max_seq"] rows, each
+    for serve["new_tokens"] tokens, with every prefill and decode tick
+    timed (each ends synchronised: its argmax is read on the host), every
+    logit checked finite, and the launch counts of exactly this run.
+    Returns the engine, the retired requests and the run's numbers."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    cfg = model.cfg
     engine = ServeEngine(model, params,
-                         EngineConfig(slots=SERVE["slots"],
-                                      max_seq=SERVE["max_seq"]),
+                         EngineConfig(slots=serve["slots"],
+                                      max_seq=serve["max_seq"]),
                          device=DEVICE)
-    lengths = np.random.default_rng(0).integers(64, 1025, SERVE["requests"])
     rng = np.random.default_rng(1)
     for i, n in enumerate(lengths):
         engine.submit(Request(rid=i, prompt=rng.integers(
             0, cfg.vocab_size, n).astype(np.int32),
-            max_new_tokens=SERVE["new_tokens"]))
-    emit({"phase": "lm_setup", "model": cfg.name, "params": n_params,
-          "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
-          "kv_cache_bytes": engine.kv_slots.capacity_bytes,
-          "init_s": init_s, "prompt_lengths": [int(n) for n in lengths]})
-
+            max_new_tokens=serve["new_tokens"]))
     prefills, ticks, finite = [], [], []
     prefill, decode = engine._prefill, engine._decode
     decode_step, model_prefill = model.decode_step, model.prefill
@@ -3181,41 +3323,239 @@ def lm_serve_path(torch, np):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
     n_tokens = sum(len(r.generated) for r in done)
+    decode_ms = [t["ms"] for t in ticks]
+    stats = {"requests": len(done), "tokens": n_tokens,
+             "prefills": len(prefills), "decode_ticks": len(ticks),
+             "launches": launches, "wall_s": wall_s,
+             "tokens_per_s": n_tokens / wall_s,
+             "prefill_ms_total": sum(p["ms"] for p in prefills),
+             "decode_ms_total": sum(decode_ms),
+             "decode_ms_median": statistics.median(decode_ms),
+             "decode_ms_by_tick": decode_ms,
+             "decode_tokens_per_s": sum(t["active"] for t in ticks)
+             / (sum(decode_ms) / 1e3),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    what = f"{cfg.name} serve"
+    check(len(done) == len(lengths)
+          and all(r.done and len(r.generated) == serve["new_tokens"]
+                  for r in done),
+          f"{what}: not every request retired with its tokens")
+    check(engine.kv_slots.occupancy == 0.0, f"{what}: slots still held")
+    check(bool(torch.stack(finite).all()), f"{what}: non-finite logits")
+    check(len(prefills) == len(lengths), f"{what}: {len(prefills)} prefills")
+    _check_attention_launches(model, launches, len(prefills), len(ticks),
+                              what)
+    return engine, done, prefills, ticks, stats
+
+
+def _check_attention_launches(model, launches, prefills, ticks, what):
+    """flash_attention launched once per self-attention layer per prefill
+    and per decode step, plus the encoder's layers a prefill and the
+    cross-attention layers a decode step (whose prefill encodes the memory
+    on the einsum path), and its split-KV merge once per decode-step
+    launch."""
+    layers = model.attention_layers()
+    enc = model.cfg.encoder_layers
+    per_tick = layers + model.cross_attention_layers()
+    want = layers * prefills + per_tick * ticks + enc * prefills
+    check(launches["flash_attention"] == want,
+          f"{what}: {launches['flash_attention']} flash_attention launches, "
+          f"expected {layers} x {prefills} prefills + {per_tick} x {ticks} "
+          f"decode steps + {enc} encoder layers x {prefills} = {want}")
+    check(launches["flash_combine"] == per_tick * ticks,
+          f"{what}: {launches['flash_combine']} flash_combine launches, "
+          f"expected one per decode-step launch, {per_tick} x {ticks}")
+
+
+def lm_serve_path(torch, np):
+    """Phase 5, the main path: SERVE["requests"] requests at full width in
+    bf16 through ServeEngine, every attention layer through
+    flash_attention."""
+    from repro_torch.models.transformer import LM
+    cfg = _lm_config(torch, "qwen2_1_5b")
+    model = LM(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = _leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == 1_546_270_208, f"qwen2-1.5b has {n_params} params")
+    lengths = np.random.default_rng(0).integers(64, 1025, SERVE["requests"])
+    emit({"phase": "lm_setup", "model": cfg.name, "params": n_params,
+          "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "init_s": init_s, "prompt_lengths": [int(n) for n in lengths]})
+    engine, done, prefills, ticks, stats = _serve_stream(
+        torch, np, model, params, SERVE, lengths)
     for p in prefills:
         emit({"phase": "lm_prefill", **p})
-    decode_ms = [t["ms"] for t in ticks]
     emit({"phase": "main_path", "plane": LM_PATH, "model": cfg.name,
-          "requests": len(done), "tokens": n_tokens, "prefills": len(prefills),
-          "decode_ticks": len(ticks), "launches": launches,
-          "wall_s": wall_s, "tokens_per_s": n_tokens / wall_s,
-          "prefill_ms_total": sum(p["ms"] for p in prefills),
-          "decode_ms_total": sum(decode_ms),
-          "decode_ms_median": statistics.median(decode_ms),
-          "decode_ms_by_tick": decode_ms,
-          "decode_tokens_per_s": sum(t["active"] for t in ticks)
-          / (sum(decode_ms) / 1e3),
-          "peak_mem_bytes": peak})
-    check(len(done) == SERVE["requests"]
-          and all(r.done and len(r.generated) == SERVE["new_tokens"]
-                  for r in done),
-          "lm serve: not every request retired with its tokens")
-    check(engine.kv_slots.occupancy == 0.0, "lm serve: slots still held")
-    check(bool(torch.stack(finite).all()), "lm serve: non-finite logits")
-    want = cfg.num_layers * (len(prefills) + len(ticks))
-    check(len(prefills) == SERVE["requests"]
-          and launches["flash_attention"] == want,
-          f"lm serve: {launches['flash_attention']} flash_attention launches,"
-          f" expected {cfg.num_layers} x ({len(prefills)} prefills + "
-          f"{len(ticks)} decode ticks) = {want}")
-    check(launches["flash_combine"] == cfg.num_layers * len(ticks),
-          f"lm serve: {launches['flash_combine']} flash_combine launches, "
-          f"expected one per decode-tick layer, {cfg.num_layers} x "
-          f"{len(ticks)}")
+          "kv_cache_bytes": engine.kv_slots.capacity_bytes, **stats})
     full_ticks = [t["ms"] for t in ticks if t["active"] == SERVE["slots"]]
     lm_profile(torch, np, engine, cfg, statistics.median(full_ticks))
+    return stats["launches"]
+
+
+#: phase 5b: each family's model (`configs.get` name, depth cut or None)
+FAMILIES = (("recurrentgemma_2b", None), ("mamba2_1_3b", None),
+            ("internvl2_1b", None), ("llama4_maverick_400b_a17b", 2),
+            ("arctic_480b", 1))
+#: the f32 gates of phase 5b: recurrentgemma-2b over a prompt longer than its
+#: 2048-token window (so the window masks in prefill and decode, and one
+#: engine prompt passes it too), arctic-480b's MoE at one layer
+FAMILY_GATES = (("recurrentgemma_2b", None,
+                 dict(prompt=2300, steps=16, tol=1e-3), (7, 2100, 5)),
+                ("arctic_480b", 1, GATE, (7, 11, 5)))
+#: phase 5b's bf16 stream: phase 5's 16 prompt lengths with the last one
+#: 3000 (past recurrentgemma's 2048 window) through 8 slots of 4096 rows
+FAMILY_SERVE = dict(slots=8, max_seq=4096, new_tokens=32, long_prompt=3000)
+VLM_BATCH = dict(batch=4, prompt=32, new_tokens=16)
+WHISPER = dict(batch=4, prompt=32, new_tokens=32)
+
+
+def family_path_name(name: str) -> str:
+    return f"{LM_PATH} {name}"
+
+
+def _raw_decode(torch, model, params, batch, prompt_rows, new_tokens):
+    """A serve_decode_torch-style static batch: prefill, then greedy decode
+    steps at one scalar index each, every logit checked finite; returns
+    the ms of the prefill and of each step (each synchronised) and the
+    launch counts of the run."""
+    from repro_torch.kernels import _build
+    B = batch["tokens"].shape[0]
+    cache = model.init_cache(B, prompt_rows + new_tokens)
+    finite, step_ms = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for t in range(new_tokens - 1):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, tok, cache,
+                                              prompt_rows + t)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            finite.append(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.LAUNCHES)
+    check(bool(torch.stack(finite).all()),
+          f"{model.cfg.name} static batch: non-finite logits")
+    return prefill_ms, step_ms, launches
+
+
+def family_serve(torch, np, arch, layers) -> dict:
+    """Phase 5b, one family in bf16 at full width: its model built, served
+    through ServeEngine with attn_impl="flash" and freed.  internvl2 adds a
+    static batch with 256 patches each."""
+    from repro_torch.models.transformer import LM
+    cfg = _lm_config(torch, arch, layers=layers)
+    model = LM(cfg, device=DEVICE)
+    params, init_s, init_peak = _init_timed(torch, model)
+    n_params = sum(t.numel() for t in _leaves(params))
+    lengths = np.random.default_rng(0).integers(64, 1025, 16)
+    lengths[-1] = FAMILY_SERVE["long_prompt"]
+    emit({"phase": "family_setup", "model": cfg.name, "family": cfg.family,
+          "layers": cfg.num_layers, "params": n_params,
+          "param_bytes": sum(t.numel() * t.element_size()
+                             for t in _leaves(params)),
+          "init_s": init_s, "init_peak_mem_bytes": init_peak,
+          "moe_capacity_factor": cfg.moe_capacity_factor if cfg.moe_experts
+          else None, "prompt_lengths": [int(n) for n in lengths]})
+    engine, done, prefills, ticks, stats = _serve_stream(
+        torch, np, model, params, FAMILY_SERVE, lengths)
+    out = {"phase": "main_path", "plane": family_path_name(cfg.name),
+           "model": cfg.name, "family": cfg.family,
+           "kv_cache_bytes": engine.kv_slots.capacity_bytes,
+           "prefill_ms_by_prompt": [[p["prompt"], p["ms"]] for p in prefills],
+           **stats}
+    launches = stats["launches"]
+    if cfg.frontend == "vision_stub":
+        rng = np.random.default_rng(0)
+        B, S, T = VLM_BATCH["batch"], VLM_BATCH["prompt"], \
+            VLM_BATCH["new_tokens"]
+        P = cfg.frontend_tokens
+        batch = {"tokens": torch.from_numpy(rng.integers(
+                     0, cfg.vocab_size, (B, S)).astype(np.int32)).to(DEVICE),
+                 "patches": torch.from_numpy(
+                     (rng.standard_normal((B, P, cfg.d_model)) * 0.1
+                      ).astype(np.float32)).to(DEVICE)}
+        prefill_ms, step_ms, extra = _raw_decode(torch, model, params,
+                                                 batch, P + S, T)
+        _check_attention_launches(model, extra, 1, T - 1,
+                                  f"{cfg.name} patches batch")
+        out["patches_batch"] = {"batch": B, "patches": P, "prompt": S,
+                                "new_tokens": T, "prefill_ms": prefill_ms,
+                                "decode_ms_median": statistics.median(
+                                    step_ms)}
+        launches = {k: launches[k] + extra[k] for k in launches}
+        out["launches"] = launches
+    emit(out)
+    del engine, params, model
+    torch.cuda.empty_cache()
     return launches
+
+
+def whisper_decode(torch, np) -> dict:
+    """Phase 5b, whisper-small at full size through the raw steps: one
+    prefill of WHISPER["batch"] x 1500 frames (stub embeddings from
+    default_rng(0)) and a WHISPER["prompt"]-token prompt, then greedy
+    decode steps.  Its 12 encoder layers (non-causal) and 12 decoder
+    self-attention layers run flash_attention a prefill, whose
+    cross-attention encodes the memory on the einsum path; a decode step
+    runs the 12 self- and the 12 cross-attention layers (non-causal over
+    the memory) through flash_attention, as the reference does."""
+    from repro_torch.models.transformer import LM
+    cfg = _lm_config(torch, "whisper_small")
+    model = LM(cfg, device=DEVICE)
+    params, init_s, _ = _init_timed(torch, model)
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    B, S, T = WHISPER["batch"], WHISPER["prompt"], WHISPER["new_tokens"]
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (B, S)).astype(np.int32)).to(DEVICE),
+             "frames": torch.from_numpy(
+                 (rng.standard_normal((B, cfg.encoder_seq, cfg.d_model))
+                  * 0.1).astype(np.float32)).to(DEVICE)}
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, step_ms, launches = _raw_decode(torch, model, params,
+                                                batch, S, T)
+    _check_attention_launches(model, launches, 1, T - 1, cfg.name)
+    emit({"phase": "main_path", "plane": family_path_name(cfg.name),
+          "model": cfg.name, "family": cfg.family, "params": n_params,
+          "init_s": init_s, "batch": B, "frames": cfg.encoder_seq,
+          "prompt": S, "new_tokens": T, "prefill_ms": prefill_ms,
+          "decode_ms_median": statistics.median(step_ms),
+          "decode_ms_by_step": step_ms,
+          "tokens_per_s": B * T / ((prefill_ms + sum(step_ms)) / 1e3),
+          "launches": launches,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    del params, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_families(torch, np) -> dict:
+    """Phase 5b: the f32 gates of FAMILY_GATES, then every family of
+    FAMILIES served in bf16 and whisper-small decoded, each model freed
+    before the next is built."""
+    for arch, layers, gate, prompts in FAMILY_GATES:
+        lm_gate_f32(torch, np, arch, layers=layers, gate=gate,
+                    engine_prompts=prompts)
+    from repro_torch import configs
+    by_path = {}
+    for arch, layers in FAMILIES:
+        by_path[family_path_name(configs.get(arch).name)] = family_serve(
+            torch, np, arch, layers)
+    by_path[family_path_name(configs.get("whisper_small").name)] = \
+        whisper_decode(torch, np)
+    return by_path
 
 
 def _device_busy(trace_path: Path) -> dict:
@@ -3319,6 +3659,11 @@ PATH_KERNELS = {
     SERVE_S4: ("frontier_read", "tiered_gather_unique", "store_fill",
                "segment_mean"),
     LM_PATH: ("flash_attention", "flash_combine"),
+    **{family_path_name(name): ("flash_attention", "flash_combine")
+       for name in ("recurrentgemma-2b", "internvl2-1b",
+                    "llama4-maverick-400b-a17b", "arctic-480b",
+                    "whisper-small")},
+    family_path_name("mamba2-1.3b"): (),       # no attention, no kernel
 }
 
 
@@ -3419,6 +3764,8 @@ def main() -> int:
     lm_gate_f32(torch, np)
     torch.cuda.empty_cache()
     by_path[LM_PATH] = lm_serve_path(torch, np)
+    torch.cuda.empty_cache()
+    by_path.update(lm_families(torch, np))
     kernels = []
     for name, (source, replaces, parity) in SOURCES.items():
         m = measured[name]

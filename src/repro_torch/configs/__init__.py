@@ -1,8 +1,7 @@
-"""Architecture registry, the port's subset of `repro.configs`: the four
-dense architectures.  `get(name)` returns the full published config;
+"""Architecture registry, the port of `repro.configs`: one module per
+assigned architecture.  `get(name)` returns the full published config;
 `get(name, reduced=True)` the smoke-test reduction (same family and
-topology, tiny dims).  The other six wait for their families (ROADMAP.md
-Queue 1 item 10).
+topology, tiny dims).
 """
 from __future__ import annotations
 
@@ -20,7 +19,6 @@ ARCH_IDS = [
     "recurrentgemma_2b",
     "mamba2_1_3b",
 ]
-PORTED = ("minicpm_2b", "h2o_danube_1_8b", "qwen3_14b", "qwen2_1_5b")
 
 
 def normalize(name: str) -> str:
@@ -28,10 +26,9 @@ def normalize(name: str) -> str:
 
 
 def get(name: str, reduced: bool = False):
-    arch = normalize(name)
-    if arch in ARCH_IDS and arch not in PORTED:
-        raise NotImplementedError(
-            f"config {arch!r} is not ported yet: its family waits for "
-            f"ROADMAP.md Queue 1 item 10; ported: {list(PORTED)}")
-    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    mod = importlib.import_module(f"repro_torch.configs.{normalize(name)}")
     return mod.reduced_config() if reduced else mod.config()
+
+
+def all_configs(reduced: bool = False):
+    return {a: get(a, reduced) for a in ARCH_IDS}

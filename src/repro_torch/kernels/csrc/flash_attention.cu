@@ -66,7 +66,11 @@
 //   mma.sync is this kernel's first tensor-core step, and at the serving
 //   path's prefill (192 blocks for 132 SMs) the chain, not the
 //   instruction's rate, limits it.  wgmma on 64-row tiles with TMA is left
-//   for a later PR.
+//   for a later PR.  hd 256 (recurrentgemma) doubles the output
+//   accumulator to 128 registers a thread, and Q's 64 fragment registers
+//   on top would pass the 255 cap, so there Q stays in shared memory
+//   (ldmatrix a k-step, every kv tile) and the ring has 2 stages: 2 x 2 x
+//   64 rows x 264 of K and V plus Q's 64 x 264 are 165 KB, one block an SM.
 // * f32 tiles (f32, Sq * GROUP > 16).  f32 stays on the CUDA cores (TF32
 //   would miss the f32 gates): a 16 x 16 thread grid owns 4 x 4 scores and
 //   4 x hd/16 output columns per thread of a 64 x 64 tile, K then V staged
@@ -86,6 +90,7 @@ constexpr int kMaxSplits = 64;
 constexpr int kMmaThreads = 128;
 constexpr int kMmaRows = 64;
 constexpr int kStages = 3;            // the tensor-core kernel's K/V ring
+                                      // (2 at hd 256, `MmaShape`)
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -714,17 +719,33 @@ __device__ __forceinline__ void load_kv_tile_async(
   }
 }
 
+// the tensor-core kernel's shape per head dim: up to hd 128 Q's fragments
+// live in registers and the ring has kStages stages, two blocks an SM; at
+// hd 256 Q stays in a shared-memory tile of its own, read a k-step at a
+// time, and the ring has 2 stages, one block an SM
+template <int HD>
+struct MmaShape {
+  static constexpr bool kQRegs = HD <= 128;
+  static constexpr int kRing = kQRegs ? kStages : 2;
+  static constexpr int kMinBlocks = kQRegs ? 2 : 1;
+};
+
 template <int HD>
 constexpr size_t mma_smem_bytes() {
-  // kStages stages of K and of V, rows padded by 8 elements; Q passes
-  // through the last stage's K before the loop
-  return sizeof(__nv_bfloat16) * 2 * kStages * kBK * (HD + 8);
+  // kRing stages of K and of V, rows padded by 8 elements; with Q in
+  // registers Q passes through the last stage's K before the loop, else
+  // it has a 64-row tile after V
+  using S = MmaShape<HD>;
+  return sizeof(__nv_bfloat16) * (2 * S::kRing * kBK +
+                                  (S::kQRegs ? 0 : kMmaRows)) * (HD + 8);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+__global__ void __launch_bounds__(kMmaThreads, MmaShape<HD>::kMinBlocks)
     flash_mma_kernel(const Params p) {
   using bf16 = __nv_bfloat16;
+  constexpr bool kQRegs = MmaShape<HD>::kQRegs;
+  constexpr int kRing = MmaShape<HD>::kRing;
   constexpr int kLD = HD + 8;         // 16-byte pad: ldmatrix rows hit
                                       // distinct banks
   constexpr int kKS = HD / 16;        // k-steps of Q K^T
@@ -732,9 +753,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   constexpr int kChunks = HD / 8;     // 16-byte words per row
   constexpr int kStage = kBK * kLD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // kStages stages
-  bf16* Vs = Ks + kStages * kStage;                // kStages stages
-  bf16* Qs = Ks + (kStages - 1) * kStage;          // before the loop only
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // kRing stages
+  bf16* Vs = Ks + kRing * kStage;                  // kRing stages
+  // with Q in registers, the last K stage before the loop only
+  bf16* Qs = kQRegs ? Ks + (kRing - 1) * kStage : Vs + kRing * kStage;
 
   // blocks in order of work: the longest q-tiles of every kv head first,
   // so the short ones that share an SM with them finish early
@@ -772,12 +794,12 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                            kh + kt * kBK * ks2, vh + kt * kBK * vs2, ks2, vs2,
                            p.Sk - kt * kBK, tid);
   };
-  // prologue: Q and the first kStages - 1 tiles in flight, one group each
+  // prologue: Q and the first kRing - 1 tiles in flight, one group each
   // tile (an empty group past the band keeps the count uniform)
   if (kt_begin < kt_end) load_kv(0, kt_begin);
   cp_async_commit();
 #pragma unroll
-  for (int j = 1; j < kStages - 1; ++j) {
+  for (int j = 1; j < kRing - 1; ++j) {
     if (kt_begin + j < kt_end) load_kv(j, kt_begin + j);
     cp_async_commit();
   }
@@ -812,26 +834,30 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
   for (int dt = 0; dt < kDT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  uint32_t qf[kKS][4];
+  // Q's fragments: all k-steps in registers (hd <= 128), or one k-step at
+  // a time from Q's own tile (hd 256)
+  uint32_t qf[kQRegs ? kKS : 1][4];
+  const int q_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const bf16* q_frag = Qs + q_row * kLD + (lane >> 4) * 8;
 
-  if (kt_begin < kt_end) {            // Q fragments into registers
-    cp_async_wait<kStages - 2>();
+  if (kQRegs && kt_begin < kt_end) {  // Q fragments into registers
+    cp_async_wait<kRing - 2>();
     __syncthreads();
 #pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(qf[ks], Qs + r * kLD + ks * 16 + (lane >> 4) * 8);
+    for (int ks = 0; ks < (kQRegs ? kKS : 0); ++ks) {
+      ldmatrix_x4(qf[ks], q_frag + ks * 16);
     }                                 // Q's stage is refilled after the
   }                                   // first iteration's barrier
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int j = kt - kt_begin;
-    const int stage = j % kStages;
-    cp_async_wait<kStages - 2>();     // tile kt has landed, and past this
-    __syncthreads();                  // barrier no warp reads stage j - 1
-    // tile kt + kStages - 1 refills the stage read at iteration j - 1
-    if (kt + kStages - 1 < kt_end) {
-      load_kv((j + kStages - 1) % kStages, kt + kStages - 1);
+    const int stage = j % kRing;
+    cp_async_wait<kRing - 2>();       // tile kt (and Q) has landed, and
+    __syncthreads();                  // past this barrier no warp reads
+                                      // stage j - 1
+    // tile kt + kRing - 1 refills the stage read at iteration j - 1
+    if (kt + kRing - 1 < kt_end) {
+      load_kv((j + kRing - 1) % kRing, kt + kRing - 1);
     }
     cp_async_commit();
     const bf16* Kt = Ks + stage * kStage;
@@ -842,13 +868,15 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
 #pragma unroll
     for (int ks = 0; ks < kKS; ++ks) {
+      const uint32_t* qa = qf[kQRegs ? ks : 0];
+      if constexpr (!kQRegs) ldmatrix_x4(qf[0], q_frag + ks * 16);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kb[4];
         const int r = np * 16 + (lane & 7) + (lane >> 4) * 8;
         ldmatrix_x4(kb, Kt + r * kLD + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -999,6 +1027,7 @@ int split_hd(const Params& p, const Split& sp, int B, int hd,
     case 64: return launch_split<T, 64>(p, sp, B, stream);
     case 80: return launch_split<T, 80>(p, sp, B, stream);
     case 128: return launch_split<T, 128>(p, sp, B, stream);
+    case 256: return launch_split<T, 256>(p, sp, B, stream);
     default: return -1;               // the wrapper refuses other head dims
   }
 }
@@ -1051,6 +1080,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 64: return launch_tiles<64>(p, B, dtype, s);
     case 80: return launch_tiles<80>(p, B, dtype, s);
     case 128: return launch_tiles<128>(p, B, dtype, s);
+    case 256: return launch_tiles<256>(p, B, dtype, s);
     default: return -1;
   }
 }

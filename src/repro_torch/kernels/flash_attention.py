@@ -21,7 +21,8 @@ contiguous, so the transposed view of a (B, S, KV, hd) KV cache is read in
 place.  Rows must start on 16 bytes (base pointers and the batch, head and
 sequence strides in whole 16-byte words), which every tensor the model
 passes satisfies.  The output has q's layout.  f32 and bf16; hd in
-HEAD_DIMS.
+HEAD_DIMS, each a template instance of every path (256 is recurrentgemma's;
+the reference's Pallas kernel takes any hd).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 SPLIT_ROWS = 16          # query rows of one kv head in a split-KV tile
 MAX_SPLITS = 64
 SPLIT_TILE = 64          # kv rows per tile; a chunk is a multiple of it

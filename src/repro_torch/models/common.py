@@ -1,13 +1,15 @@
 """Model configuration and parameter-spec machinery, the port's subset of
 `repro.models.common`: `ModelConfig`, `ParamDef`, `init_params` and
 `param_count`.  The sharding rules, `abstract_params` and `param_pspecs`
-wait for the launch and distributed slice (ROADMAP.md Queue 1 items 10-11).
+wait for the launch and distributed slice (ROADMAP.md Queue 1 item 11).
 
 Initial values come from an explicit `torch.Generator` and are drawn on
 its device, so a CUDA generator fills a full-width model on the card;
 they differ from `jax.random`'s for the same seed, so parity tests carry
 the reference's parameters over instead (`GNN.load_reference_params`,
-`LM.load_reference_params`).
+`LM.load_reference_params`).  A leaf of more than `INIT_CHUNK` elements is
+drawn in chunks of that many, so that a full-width MoE expert tensor never
+needs an f32 temporary of its whole size.
 """
 from __future__ import annotations
 
@@ -20,11 +22,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of the reference's `ModelConfig` that the dense serving
-    path reads, with torch dtypes.  `family` and `moe_experts` are kept so
-    that `LM` can refuse the families it does not have; the other families'
-    fields come with the slices that port them (ROADMAP.md Queue 1 item 10).
-    """
+    """The reference's `ModelConfig` with torch dtypes, less the fields of
+    training and of the launch slice (`remat`, `scan_unroll`,
+    `moe_2d_dispatch`; ROADMAP.md Queue 1 items 10-11)."""
 
     name: str
     family: str                      # dense | moe | ssm | hybrid | encdec | vlm
@@ -39,15 +39,37 @@ class ModelConfig:
     norm_type: str = "rms"           # rms | layernorm
     norm_eps: float = 1e-6
     act: str = "silu_gated"          # silu_gated | gelu
-    pos_embed: str = "rope"          # rope | none (learned waits)
+    pos_embed: str = "rope"          # rope | learned | none
     rope_theta: float = 10_000.0
     qk_norm: bool = False            # qwen3
     qkv_bias: bool = False           # qwen2 / internvl2 backbone
     attn_window: int | None = None   # sliding-window attention (h2o-danube)
+    max_position: int = 32768        # learned-pos table size (whisper)
     tie_embeddings: bool = False
     residual_scale: float = 1.0      # minicpm depth-scaled residuals
     embed_scale: float = 1.0         # minicpm mup-style embedding scale
-    moe_experts: int = 0             # > 0 is refused by LM
+    # --- MoE ---------------------------------------------------------------
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_interleave: int = 1          # layer i is MoE iff i % interleave ==
+                                     # interleave-1 (llama4: every 2nd)
+    moe_shared_expert: bool = False  # llama4
+    moe_dense_residual: bool = False # arctic: dense FFN parallel to MoE
+    moe_capacity_factor: float = 1.25
+    # --- SSM / hybrid --------------------------------------------------------
+    ssm_state: int = 0               # mamba2 N
+    ssm_headdim: int = 64            # mamba2 P
+    ssm_expand: int = 2              # d_inner = expand * d_model
+    ssm_chunk: int = 128             # SSD chunk length
+    hybrid_attn_every: int = 0       # recurrentgemma: attn layer every 3rd
+    lru_width: int = 0               # RG-LRU width (0 -> d_model)
+    local_window: int = 2048         # recurrentgemma local attention window
+    # --- encoder-decoder / frontends -----------------------------------------
+    encoder_layers: int = 0
+    encoder_seq: int = 1500          # whisper: 30 s of 20 ms frames
+    frontend: str | None = None      # audio_stub | vision_stub
+    frontend_tokens: int = 256       # vlm: patch embeddings per image
+    # --- numerics -------------------------------------------------------------
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "einsum"        # einsum | flash (the CUDA kernel)
@@ -60,6 +82,29 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         m = self.vocab_pad_to
         return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    def is_moe_layer(self, i: int) -> bool:
+        if not self.moe_experts:
+            return False
+        return (i % self.moe_interleave) == (self.moe_interleave - 1)
+
+    def is_attn_layer(self, i: int) -> bool:
+        """hybrid archs: which layers are (local) attention."""
+        if self.family != "hybrid":
+            return True
+        k = self.hybrid_attn_every
+        return k > 0 and (i % k) == (k - 1)
+
+
+INIT_CHUNK = 1 << 30     # elements drawn at once: 4 GB of f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +126,17 @@ class ParamDef:
             std = math.sqrt(1.0 / fan_in)
         else:
             std = 0.02 * self.scale
-        return (torch.randn(self.shape, generator=generator,
-                            dtype=torch.float32, device=dev) * std
-                ).to(self.dtype)
+        # drawn INIT_CHUNK elements at a time, so that a large leaf never
+        # has a whole f32 temporary beside it
+        n = math.prod(self.shape)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        flat = out.view(-1)
+        for start in range(0, n, INIT_CHUNK):
+            part = torch.randn(min(INIT_CHUNK, n - start),
+                               generator=generator, dtype=torch.float32,
+                               device=dev)
+            flat[start:start + part.numel()] = part.mul_(std)
+        return out
 
 
 ParamTree = Any  # nested dict / list of ParamDef

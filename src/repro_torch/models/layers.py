@@ -1,8 +1,8 @@
-"""Shared LM layers, the port's subset of `repro.models.layers`: norms,
-rotary embeddings, self-attention (einsum path and the CUDA
-`flash_attention` path, with a KV cache at a scalar or per-slot index)
-and the MLP.  Mixture of experts and cross-attention wait for their
-families (ROADMAP.md Queue 1 item 10).
+"""Shared LM layers, the port of `repro.models.layers`: norms, rotary
+embeddings, attention (self-attention on the einsum path or the CUDA
+`flash_attention` path, with a KV cache at a scalar or per-slot index;
+non-causal self-attention; cross-attention with a cache written once),
+the MLP and the capacity-based mixture of experts.
 
 Functions take params in and give activations out, as in the reference,
 with one exception: a KV cache passed to `attention` is written in place
@@ -133,41 +133,45 @@ def _mask_bias(Sq: int, Sk: int, q_offset, causal: bool, window, dtype,
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              kv_x: torch.Tensor | None = None,
               positions: torch.Tensor | None = None,
               kv_cache: tuple | None = None,
               cache_index=None,
               causal: bool = True,
-              window: int | None = None) -> tuple[torch.Tensor, tuple | None]:
-    """Self-attention with GQA / SWA / qk-norm / bias / cache.
+              window: int | None = None,
+              static_kv: bool = False) -> tuple[torch.Tensor, tuple | None]:
+    """Multi-head attention with GQA / SWA / qk-norm / bias / cache.
 
+    kv_x:        source of K, V (cross-attention); defaults to x
     kv_cache:    (k, v) of shape (B, S_cache, KV, hd), written IN PLACE:
                  with Sq == 1 and an index, one row per sequence at its
-                 index (decode); otherwise the prompt at the scalar index
+                 index (decode); otherwise the new K/V at the scalar index
                  (prefill writes at 0)
     cache_index: int, or a (B,) int32 tensor of per-slot positions
+    static_kv:   cross-attention cache: with kv_x, K/V of kv_x are written
+                 into the cache once (prefill); without it, the cache is
+                 read as it is and no K/V are computed (decode)
     returns (out, (k, v) cache or None)
 
-    attn_impl "flash" runs `ops.flash_attention` over the whole cache with
-    the cache's per-sequence offsets as q_offset, which is what the einsum
-    path computes; the reference's flash branch passes no offset, so its
-    decode steps see only cache row 0 (ROADMAP.md Queue 3).
+    attn_impl "flash" runs `ops.flash_attention` wherever the reference's
+    flash branch does, whenever K/V come from x or the cache (kv_x is
+    None): self-attention over the whole cache with the cache's
+    per-sequence offsets as q_offset, which is what the einsum path
+    computes (the reference's flash branch passes no offset, so its decode
+    steps see only cache row 0: ROADMAP.md Queue 3), and cross-attention's
+    decode, non-causal over the encoded memory.  Cross-attention that
+    encodes kv_x (prefill, forward) takes the einsum path, as there.
     """
     B, Sq, _ = x.shape
     H, KVh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    cross = kv_x is not None or static_kv
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
     q = q.reshape(B, Sq, H, hd)
-    k = k.reshape(B, Sq, KVh, hd)
-    v = v.reshape(B, Sq, KVh, hd)
     if cfg.qk_norm:
         q = _rms(q, p["q_norm"], cfg.norm_eps)
-        k = _rms(k, p["k_norm"], cfg.norm_eps)
 
     # cache_index may be a scalar or a per-sequence (B,) vector
     # (continuous-batching slots decode at different positions)
@@ -178,51 +182,69 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     elif cache_index is not None:
         idx_vec = torch.full((B,), int(cache_index), dtype=torch.int32,
                              device=x.device)
-    if cfg.pos_embed == "rope":
-        if positions is None:
-            positions = torch.arange(Sq, device=x.device)
-            if kv_cache is not None and idx_vec is not None:
-                positions = positions[None, :] + idx_vec[:, None]
-        cos, sin = _rope_tables(positions, hd, cfg.rope_theta)
-        q = _apply_rope(q, cos, sin)
-        k = _apply_rope(k, cos, sin)
 
     q_offset = 0
     new_cache = None
-    if kv_cache is not None:
-        ck, cv = kv_cache                   # (B, S_cache, KV, hd)
-        if Sq == 1 and idx_vec is not None:
-            rows = torch.arange(B, device=x.device)
-            ck[rows, idx_vec.long()] = k[:, 0].to(ck.dtype)
-            cv[rows, idx_vec.long()] = v[:, 0].to(cv.dtype)
-        else:
-            if per_slot:
-                raise ValueError("a prompt is written at one scalar index")
-            idx = int(cache_index) if cache_index is not None else 0
-            ck[:, idx:idx + Sq] = k.to(ck.dtype)
-            cv[:, idx:idx + Sq] = v.to(cv.dtype)
-        q_offset = idx_vec if idx_vec is not None else 0
-        k, v = ck, cv
-        new_cache = (ck, cv)
+    if static_kv and kv_x is None:
+        # cross-attention decode: the cache holds the encoded memory
+        k, v = kv_cache
+        new_cache = kv_cache
+    else:
+        src = x if kv_x is None else kv_x
+        Sk = src.shape[1]
+        k = src @ p["wk"]
+        v = src @ p["wv"]
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(k.dtype)
+            v = v + p["bv"].to(v.dtype)
+        k = k.reshape(B, Sk, KVh, hd)
+        v = v.reshape(B, Sk, KVh, hd)
+        if cfg.qk_norm:
+            k = _rms(k, p["k_norm"], cfg.norm_eps)
+        if cfg.pos_embed == "rope" and kv_x is None:
+            if positions is None:
+                positions = torch.arange(Sq, device=x.device)
+                if kv_cache is not None and idx_vec is not None:
+                    positions = positions[None, :] + idx_vec[:, None]
+            cos, sin = _rope_tables(positions, hd, cfg.rope_theta)
+            q = _apply_rope(q, cos, sin)
+            k = _apply_rope(k, cos, sin)
+        if kv_cache is not None:
+            ck, cv = kv_cache               # (B, S_cache, KV, hd)
+            if Sq == 1 and idx_vec is not None:
+                rows = torch.arange(B, device=x.device)
+                ck[rows, idx_vec.long()] = k[:, 0].to(ck.dtype)
+                cv[rows, idx_vec.long()] = v[:, 0].to(cv.dtype)
+            else:
+                if per_slot:
+                    raise ValueError("a prompt is written at one scalar "
+                                     "index")
+                idx = int(cache_index) if cache_index is not None else 0
+                ck[:, idx:idx + Sk] = k.to(ck.dtype)
+                cv[:, idx:idx + Sk] = v.to(cv.dtype)
+            if not static_kv:
+                q_offset = idx_vec if idx_vec is not None else 0
+                k, v = ck, cv
+            new_cache = (ck, cv)
 
     group = H // KVh
-    if cfg.attn_impl == "flash":
+    if cfg.attn_impl == "flash" and kv_x is None:
         off = q_offset if isinstance(q_offset, torch.Tensor) else None
         att = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window,
+            causal=causal and not static_kv, window=window,
             q_offset=None if off is None else off.contiguous())
         out = att.transpose(1, 2).reshape(B, Sq, H * hd)
         return out @ p["wo"], new_cache
-    if cfg.attn_impl != "einsum":
+    if cfg.attn_impl not in ("einsum", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
     qh = q.reshape(B, Sq, KVh, group, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qh, k) * (hd ** -0.5)
     Sk = k.shape[1]
-    bias = _mask_bias(Sq, Sk, q_offset, causal, window, scores.dtype,
-                      x.device)
-    if kv_cache is not None and idx_vec is not None:
+    bias = _mask_bias(Sq, Sk, q_offset, causal and not cross, window,
+                      scores.dtype, x.device)
+    if not cross and kv_cache is not None and idx_vec is not None:
         # self-attention over a cache: mask unwritten slots (per sequence)
         valid = (torch.arange(Sk, device=x.device)[None, :]
                  <= (idx_vec.long()[:, None] + Sq - 1))[:, None, None, None, :]
@@ -264,3 +286,82 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w1"] + p["b1"].to(x.dtype), approximate="tanh")
     return h @ p["w2"] + p["b2"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts: capacity-based scatter dispatch (Switch-style), as the
+# reference: each expert takes at most C tokens in arrival order, the rest
+# go to a dropped slot that contributes 0.
+# --------------------------------------------------------------------------
+def moe_defs(cfg: ModelConfig) -> dict:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    d = {
+        "router": ParamDef((D, E), ("embed", None), torch.float32,
+                           init="normal", scale=0.1),
+        "w1": ParamDef((E, D, Fd), ("expert", "expert_ffn", None),
+                       cfg.param_dtype, init="lecun"),
+        "w3": ParamDef((E, D, Fd), ("expert", "expert_ffn", None),
+                       cfg.param_dtype, init="lecun"),
+        "w2": ParamDef((E, Fd, D), ("expert", None, "expert_ffn"),
+                       cfg.param_dtype, init="lecun"),
+    }
+    if cfg.moe_shared_expert:
+        d["shared"] = mlp_defs(cfg)
+    if cfg.moe_dense_residual:
+        d["dense"] = mlp_defs(cfg)
+    return d
+
+
+def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    B, S, D = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    N = B * S
+    xf = x.reshape(N, D)
+
+    # router matmul in the compute dtype, softmax in f32
+    logits = (xf @ p["router"].to(xf.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k breaks ties by the lower index and torch.topk does not say;
+    # random f32 router logits have no ties, so no rule is added here
+    gates, sel = torch.topk(probs, k, dim=-1)              # (N, k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    C = int((k * N / E) * cfg.moe_capacity_factor)
+    C = max(8, -(-C // 8) * 8)
+    eid = sel.reshape(-1)                                  # (N*k,)
+    onehot = F.one_hot(eid, E).float()                     # (N*k, E)
+    pos = ((torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1.0).long()
+    keep = pos < C
+    slot = torch.where(keep, eid * C + pos, E * C)         # overflow -> drop
+
+    # gather-based dispatch: scatter the token ids into the (E*C+1,) slot
+    # table, then gather rows (the dropped slot's entry is never read)
+    token_of = torch.arange(N * k, device=x.device) // k
+    dispatch = torch.full((E * C + 1,), N, dtype=torch.long, device=x.device)
+    dispatch[slot] = token_of
+    xf_pad = torch.cat([xf, xf.new_zeros(1, D)], dim=0)
+    xe = xf_pad[dispatch[:E * C]].reshape(E, C, D)
+
+    h = F.silu(torch.bmm(xe, p["w1"])) * torch.bmm(xe, p["w3"])
+    ye = torch.bmm(h, p["w2"])                             # (E, C, D)
+
+    ypad = torch.cat([ye.reshape(E * C, D), ye.new_zeros(1, D)], dim=0)
+    contrib = ypad[slot] * gates.reshape(-1)[:, None].to(ye.dtype)
+    y = contrib.reshape(N, k, D).sum(dim=1)
+
+    if cfg.moe_shared_expert:
+        y = y + mlp(p["shared"], xf, cfg)
+    if cfg.moe_dense_residual:
+        y = y + mlp(p["dense"], xf, cfg)
+    return y.reshape(B, S, D)
+
+
+def moe_aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch load-balancing loss: E * sum_e f_e * p_e."""
+    D = x.shape[-1]
+    xf = x.reshape(-1, D)
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+    top = probs.argmax(dim=-1)
+    f = F.one_hot(top, cfg.moe_experts).float().mean(dim=0)
+    pbar = probs.mean(dim=0)
+    return cfg.moe_experts * (f * pbar).sum()

@@ -20,6 +20,14 @@ its slot of the engine cache (`Tensor.copy_`), and each decode step writes
 one K/V row per slot into that cache (`LM.decode_step`).  With
 `attn_impl="flash"` every attention layer of every prefill and decode step
 runs the CUDA `flash_attention` kernel.
+
+Every decoder-only family is served (dense, moe, hybrid, ssm, and vlm with
+text-only requests, as the reference's `_admit` passes only tokens): each
+cache leaf has a leading (layers, slots) pair of axes, so the splice copies
+KV rows and RG-LRU or SSD states alike, and the `serve-kv` tier prices a
+slot at all of them.  An encoder-decoder needs its frames at prefill,
+which a `Request` does not carry: it runs through `LM.prefill` /
+`LM.decode_step` directly (examples/serve_decode_torch.py).
 """
 from __future__ import annotations
 
@@ -75,6 +83,10 @@ class ServeEngine:
     def __init__(self, model: LM, params, cfg: EngineConfig,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        if model.cfg.family == "encdec":
+            raise ValueError(
+                f"{model.cfg.name}: an encoder-decoder's prefill needs frames,"
+                f" which requests do not carry; use LM.prefill / decode_step")
         if model.device.type != self.device.type:
             raise ValueError(f"engine on {self.device}, model on "
                              f"{model.device}")

@@ -78,6 +78,27 @@ def test_attention_ref_matches_pallas_interpret(case, dtype):
     np.testing.assert_allclose(_np(out), _np(want), rtol=tol, atol=tol)
 
 
+# head dim 256 (recurrentgemma-2b: H 10, MQA, a local window), small S:
+# the reference's Pallas kernel takes whole-hd blocks of any size
+HD256 = [(1, 10, 1, 96, 96, 256, True, 32),
+         (2, 4, 2, 40, 72, 256, False, None)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", HD256, ids=["mqa_window", "padded"])
+def test_attention_ref_hd256_matches_reference(case, dtype):
+    """attention_ref at hd 256 against the reference's oracle and its
+    Pallas kernel in interpret mode, at the sweep's tolerance."""
+    causal, window = case[6], case[7]
+    (qj, kj, vj), (qt, kt, vt) = _inputs(case, dtype, seed=256 + case[3])
+    out = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    tol = DTYPES[dtype][2]
+    for want in (jref.attention_ref(qj, kj, vj, causal=causal, window=window),
+                 jops.flash_attention(qj, kj, vj, causal=causal,
+                                      window=window)):
+        np.testing.assert_allclose(_np(out), _np(want), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("window", [None, 24], ids=["causal", "window"])
 @pytest.mark.parametrize("Sq", [1, 5])
 def test_q_offset_equals_reference_with_leading_queries(Sq, window):
@@ -182,7 +203,7 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_no_launch():
     ops.flash_attention(q, k, k)
     assert _build.LAUNCHES["flash_attention"] == before
     assert "flash_attention" in _build.SOURCES
-    assert tfa.HEAD_DIMS == (16, 32, 64, 80, 128)
+    assert tfa.HEAD_DIMS == (16, 32, 64, 80, 128, 256)
 
 
 # split-KV: (B, H, KV, Sq, Sk, hd, window, offsets); offsets 0 (one visible
@@ -191,7 +212,8 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_no_launch():
 SPLIT_CASES = [(3, 12, 2, 1, 300, 32, None, (0, 150, 299)),
                (2, 8, 2, 4, 200, 16, 24, (0, 196)),
                (1, 4, 1, 2, 130, 64, None, (128,)),
-               (2, 4, 2, 1, 64, 16, 4, (100, 10))]
+               (2, 4, 2, 1, 64, 16, 4, (100, 10)),
+               (2, 10, 1, 1, 300, 256, 48, (100, 290))]
 
 
 def _reference_at_offsets(q, k, v, offsets, window):
@@ -211,7 +233,8 @@ def _reference_at_offsets(q, k, v, offsets, window):
 
 @pytest.mark.parametrize("plan", ["launcher", "one_tile"])
 @pytest.mark.parametrize("case", SPLIT_CASES,
-                         ids=["decode", "window_group4", "b1", "unseen"])
+                         ids=["decode", "window_group4", "b1", "unseen",
+                              "hd256_window"])
 def test_split_and_combine_match_reference_oracle(case, plan):
     """The kernel's split-KV arithmetic in plain torch: partials (m, l,
     acc) per kv chunk with NEG_INF = -1e30, merged by log-sum-exp, against

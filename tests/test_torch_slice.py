@@ -111,12 +111,12 @@ def test_three_sgd_steps_match_reference():
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_unported_options_raise_with_their_roadmap_item():
+def test_ported_options_build_and_distributed_raises():
     """The host planes, merged windows, the topology plane, the sharded
-    and cluster planes, the LADIES sampler and the GNN-serving presets are
-    ported; the LM families and configs (ROADMAP item 10) and the
-    distributed options (item 11) still raise, naming their item, and an
-    unknown sampler raises ValueError when the config is built."""
+    and cluster planes, the LADIES sampler, the GNN-serving presets and the
+    LM families and configs (ROADMAP item 10) are ported; the distributed
+    options (item 11) still raise, naming their item, and an unknown
+    sampler raises ValueError when the config is built."""
     for name in ("gids", "gids-async", "bam", "mmap", "pinned-host",
                  "gids-merged", "gids-merged-async", "gids-topo",
                  "gids-topo-merged", "gids-sharded", "gids-merged-sharded",
@@ -125,9 +125,8 @@ def test_unported_options_raise_with_their_roadmap_item():
         assert DataPlaneSpec.preset(name).name == name
     from repro_torch import configs
     from repro_torch.models.transformer import LM
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 10"):
-        configs.get("mamba2_1_3b")
+    assert LM(configs.get("mamba2_1_3b"), device="cpu").plan == [
+        (("ssm",), 48)]
     cfg = configs.get("qwen2_1_5b", reduced=True)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md Queue 1 item 11"):
@@ -173,13 +172,16 @@ def test_port_imports_no_jax():
                  "core.feedback", "core.storage_sim", "graph.synthetic",
                  "obs", "obs.metrics", "obs.trace", "obs.validate",
                  "serve.workload", "serve.admission", "serve.gnn_engine",
-                 "core.tiers", "core.dataplane", "graph.csr"):
+                 "core.tiers", "core.dataplane", "graph.csr",
+                 "models.recurrent", "configs.whisper_small",
+                 "configs.recurrentgemma_2b"):
         assert f"repro_torch.{name}\n" in out.stdout
     pattern = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)\b)",
                          re.M)
     sources = [*(ROOT / "src" / "repro_torch").rglob("*.py"),
                ROOT / "chip_smoke.py",
-               ROOT / "examples" / "train_gnn_igb_torch.py"]
+               ROOT / "examples" / "train_gnn_igb_torch.py",
+               ROOT / "examples" / "serve_decode_torch.py"]
     for path in sources:
         hits = [m.group(0) for m in pattern.finditer(path.read_text())]
         assert not hits, (path, hits)
