@@ -221,6 +221,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    cross-attention layers too).  Prints each model's
    parameters, init seconds and peak, prefill ms by prompt length, decode
    ms per tick, tokens/s and peak memory.
+5c. LM training (TRAIN, TRAIN_RESUME, TRAIN_GATE, TRAIN_FAMILIES).  An
+   f32 gate with TF32 off: one train step of the reduced qwen2 from
+   parameters drawn on the card, its loss and grad norm within 1e-5
+   relative of a plain f32 re-computation of qwen2's loss written in the
+   phase.  Then qwen2-1.5b at full published width and depth through
+   `repro_torch.launch.train.build` (bf16 weights, AdamW with f32 master,
+   m and v, remat, the trainer's cosine schedule warming up over 5 steps),
+   batch 8 x 1024, TRAIN["steps"] steps on tests/test_system.py:25's
+   learnable stream through the TokenPipeline.  Gates: the published
+   parameter count; the first step (rate 0) moves no parameter; every
+   loss and grad norm finite; the mean of the last 5 losses below half
+   the first 5's; no kernel of the port launched (training runs the
+   einsum attention).  Prints the median step ms after the first,
+   tokens/s, `mfu` (6 N tokens over the step time at 989 TFLOP/s), the
+   resident and peak memory, and each step's forward+backward and
+   optimizer ms by CUDA events.  The resume gate, deterministic
+   algorithms on: the same model cut to 2 layers, 12 steps straight, and
+   6 + `train.checkpoint` save + restore into a model from another seed
+   and a fresh pipeline + 6; every parameter and optimizer-state leaf and
+   every later loss bit-equal to the straight run's (prints save and
+   restore ms and the bytes written to a temporary directory it
+   deletes).  One step of recurrentgemma-2b, mamba2-1.3b, internvl2-1b
+   (patches from `FeatureStore.synthetic` through the pipeline),
+   whisper-small (frames drawn here) and arctic-480b (Adafactor) at their
+   reduced configs in bf16: finite loss and grad norm, every leaf moved.
+   Last, a flash-configured model asked for a gradient must raise.
 6. One JSON line `{"kernels": [...]}` and, last, one JSON line naming the
    device.
 
@@ -3630,6 +3656,472 @@ def lm_profile(torch, np, engine, cfg, tick_ms: float) -> None:
     check(engine.kv_slots.occupancy == 0.0, "lm profile: slots still held")
 
 
+# -- phase 5c --------------------------------------------------------------------
+
+TRAIN_PATH = "lm-train"
+#: phase 5c: qwen2-1.5b trained at full width and depth (AdamW, remat, the
+#: trainer's cosine schedule with its max(steps // 20, 5) warmup) on the
+#: learnable stream of tests/test_system.py:25 through the TokenPipeline
+TRAIN = dict(arch="qwen2_1_5b", batch=8, seq=1024, steps=30, lr=6e-4,
+             params=1_546_270_208)
+#: the resume gate: the same model cut to 2 layers, `steps` straight against
+#: `at` + save + restore + the rest, bit for bit
+TRAIN_RESUME = dict(layers=2, steps=12, at=6)
+#: the f32 gate: one step of the reduced qwen2 against a plain f32
+#: re-computation of its loss, loss and grad norm within `tol` relative
+TRAIN_GATE = dict(batch=4, seq=64, tol=1e-5)
+#: one step each at the reduced config in bf16 (arctic on Adafactor)
+TRAIN_FAMILIES = ("recurrentgemma_2b", "mamba2_1_3b", "internvl2_1b",
+                  "whisper_small", "arctic_480b")
+TRAIN_FAMILY_BATCH = dict(batch=2, seq=64, lr=1e-3)
+
+
+def _stream(np):
+    """tests/test_system.py:25's learnable stream: next = (token + 1) % 50."""
+    return (np.cumsum(np.ones(1 << 14)) % 50).astype(np.int32)
+
+
+def _on_device(torch, batch: dict) -> dict:
+    return {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+
+
+def _plain_qwen2_loss(torch, cfg, params, batch):
+    """qwen2's mean next-token loss in plain f32 torch, written from the
+    architecture and not through the port's layers: RMS norms, GQA with
+    QKV bias and rotary halves, a causal softmax, SwiGLU, the tied head
+    over the real vocabulary only."""
+    import math
+    F = torch.nn.functional
+    tokens, labels = batch["tokens"].long(), batch["labels"].long()
+    B, S = tokens.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    half = hd // 2
+    inv = cfg.rope_theta ** (-torch.arange(half, dtype=torch.float32,
+                                           device=DEVICE) / half)
+    ang = torch.arange(S, dtype=torch.float32, device=DEVICE)[:, None] * inv
+    cos, sin = ang.cos()[None, :, None, :], ang.sin()[None, :, None, :]
+
+    def rot(t):
+        a, b = t[..., :half], t[..., half:]
+        return torch.cat([a * cos - b * sin, b * cos + a * sin], dim=-1)
+
+    def rms(t, w):
+        return t * torch.rsqrt(t.pow(2).mean(-1, keepdim=True)
+                               + cfg.norm_eps) * w
+
+    causal = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril()
+    stack = params["stacks"][0]["b0"]
+    x = params["embed"][tokens]
+    for g in range(cfg.num_layers):
+        a, m = stack["attn"], stack["mlp"]
+        h = rms(x, stack["ln1"]["scale"][g])
+        q = rot((h @ a["wq"][g] + a["bq"][g]).view(B, S, H, hd))
+        k = rot((h @ a["wk"][g] + a["bk"][g]).view(B, S, KV, hd))
+        v = (h @ a["wv"][g] + a["bv"][g]).view(B, S, KV, hd)
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+        att = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        att = att.masked_fill(~causal, float("-inf")).softmax(-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, S, H * hd)
+        x = x + o @ a["wo"][g]
+        h = rms(x, stack["ln2"]["scale"][g])
+        x = x + (F.silu(h @ m["w1"][g]) * (h @ m["w3"][g])) @ m["w2"][g]
+    x = rms(x, params["final_norm"]["scale"])
+    logits = x @ params["embed"][:cfg.vocab_size].T
+    return F.cross_entropy(logits.reshape(B * S, -1), labels.reshape(-1))
+
+
+def lm_train_gate_f32(torch, np) -> dict:
+    """The f32 gate (TF32 off): one train step of the reduced qwen2 from
+    parameters drawn on the card, its loss and grad norm against the plain
+    re-computation's on the same batch."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.steps import TrainConfig, make_train_step
+    cfg = dataclasses.replace(configs.get(TRAIN["arch"], reduced=True),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = LM(cfg, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    rng = np.random.default_rng(0)
+    shape = (TRAIN_GATE["batch"], TRAIN_GATE["seq"])
+    batch = _on_device(torch, {
+        "tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32),
+        "labels": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)})
+    plain = {k: v.clone().requires_grad_(True) for k, v in
+             ckpt._flatten(params).items()}
+    loss = _plain_qwen2_loss(torch, cfg, ckpt._unflatten(params, plain),
+                             batch)
+    grads = torch.autograd.grad(loss, list(plain.values()))
+    plain_gn = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+    ocfg = OptimizerConfig(name="adamw", lr=1e-3)
+    step = make_train_step(model, TrainConfig(optimizer=ocfg))
+    _, _, metrics = step(params, opt_lib.init(params, ocfg), batch)
+    out = {"phase": "lm_train_gate_f32", "model": cfg.name,
+           "layers": cfg.num_layers, "batch": list(shape),
+           "loss": float(metrics["loss"]), "plain_loss": float(loss.detach()),
+           "grad_norm": float(metrics["grad_norm"]),
+           "plain_grad_norm": plain_gn, "tol": TRAIN_GATE["tol"]}
+    out["loss_rel_err"] = abs(out["loss"] / out["plain_loss"] - 1)
+    out["grad_norm_rel_err"] = abs(out["grad_norm"] / plain_gn - 1)
+    emit(out)
+    check(out["loss_rel_err"] <= TRAIN_GATE["tol"]
+          and out["grad_norm_rel_err"] <= TRAIN_GATE["tol"],
+          f"lm train f32 gate: loss {out['loss']} vs {out['plain_loss']}, "
+          f"grad norm {out['grad_norm']} vs {plain_gn} (tol "
+          f"{TRAIN_GATE['tol']} relative)")
+    return out
+
+
+def _timed_steps(torch, step_fn, params, state, pipe, steps: int,
+                 split: bool = False):
+    """`steps` train steps, each on the pipeline's next batch and ended
+    synchronised (its loss read on the host); with `split`, CUDA events
+    around each step's forward+backward and its optimizer update."""
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps as steps_lib
+    rows, events = [], []
+
+    def evented(name, fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            events[-1][name] = (start, end)
+            return out
+        return call
+
+    patches = (mock.patch.object(steps_lib, "_grads",
+                                 evented("fwd_bwd", steps_lib._grads)),
+               mock.patch.object(opt_lib, "update",
+                                 evented("optimizer", opt_lib.update))) \
+        if split else ()
+    for p in patches:
+        p.start()
+    try:
+        for _ in range(steps):
+            events.append({})
+            t0 = time.perf_counter()
+            batch = _on_device(torch, next(pipe))
+            params, state, m = step_fn(params, state, batch)
+            loss = float(m["loss"])                      # synchronises
+            rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": loss, "grad_norm": float(m["grad_norm"]),
+                         "lr": float(m["lr"])})
+            for name, (start, end) in events[-1].items():
+                rows[-1][f"{name}_ms"] = start.elapsed_time(end)
+    finally:
+        for p in patches:
+            p.stop()
+    return params, state, rows
+
+
+def lm_train_full(torch, np) -> dict:
+    """Phase 5c's main path: qwen2-1.5b at full width and depth through
+    `repro_torch.launch.train.build`, TRAIN["steps"] steps on the learnable
+    stream.  Gates: the published parameter count; the first step (lr 0)
+    moves no parameter; every loss and grad norm finite; the mean of the
+    last 5 losses below half the mean of the first 5; no kernel of the
+    port launched (training runs the einsum attention)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import build
+    from repro_torch.train import optimizer as opt_lib
+    cfg, model, step_fn, pipe, ocfg = build(
+        TRAIN["arch"], reduced=False, batch=TRAIN["batch"],
+        seq=TRAIN["seq"], lr=TRAIN["lr"], total_steps=TRAIN["steps"],
+        schedule="cosine", device=DEVICE)
+    pipe.tokens = _stream(np)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    state = opt_lib.init(params, ocfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = opt_lib.leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == TRAIN["params"],
+          f"{cfg.name} has {n_params} params, not {TRAIN['params']}")
+    resident = torch.cuda.memory_allocated()
+    before = [t.clone() for t in leaves]
+    _build.reset_launches()
+    params, state, first = _timed_steps(torch, step_fn, params, state, pipe,
+                                        1, split=True)
+    moved = [i for i, (a, b) in enumerate(zip(before, opt_lib.leaves(
+        params))) if not torch.equal(a, b)]
+    del before
+    check(first[0]["lr"] == 0.0 and not moved,
+          f"{cfg.name} train: the first step (lr {first[0]['lr']}) moved "
+          f"{len(moved)} parameter leaves")
+    params, state, rest = _timed_steps(torch, step_fn, params, state, pipe,
+                                       TRAIN["steps"] - 1, split=True)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    rows = first + rest
+    losses = [r["loss"] for r in rows]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    step_ms = statistics.median(r["ms"] for r in rest)
+    out = {"phase": "main_path", "plane": TRAIN_PATH, "model": cfg.name,
+           "params": n_params, "optimizer": ocfg.name, "remat": cfg.remat,
+           "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps": len(rows),
+           "peak_lr": TRAIN["lr"], "init_s": init_s,
+           "resident_bytes": resident,
+           "step_ms_median": step_ms, "tokens_per_step": tokens,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "mfu": 6 * n_params * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+           "fwd_bwd_ms_median": statistics.median(
+               r["fwd_bwd_ms"] for r in rest),
+           "optimizer_ms_median": statistics.median(
+               r["optimizer_ms"] for r in rest),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "grad_norms": [r["grad_norm"] for r in rows],
+           "lrs": [r["lr"] for r in rows],
+           "step_ms": [r["ms"] for r in rows], "launches": launches}
+    emit(out)
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in rows), f"{cfg.name} train: a non-finite loss or norm")
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(tail < 0.5 * head, f"{cfg.name} train: the last 5 losses average "
+          f"{tail}, not below half the first 5's {head}")
+    check(not any(launches.values()),
+          f"{cfg.name} train: kernels launched on the einsum path: "
+          f"{launches}")
+    lm_train_profile(torch, step_fn, params, state, pipe, step_ms)
+    del params, state, model, step_fn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+        return "matmul"
+    if "softmax" in low:
+        return "softmax"
+    if "reduce" in low or "norm" in low:
+        return "reduce"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    return "other"
+
+
+def lm_train_profile(torch, step_fn, params, state, pipe,
+                     step_ms: float) -> None:
+    """Where a full-width train step's time goes on the card:
+    `torch.profiler` over one more step after the counted run, the card's
+    busy ms (the union of kernels, copies and memsets), its idle share
+    against the unprofiled median step, the kernels' ms by class (matmul,
+    softmax, reduce, elementwise, other) and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    trace = ROOT / "build" / "lm_train_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    batch = _on_device(torch, next(pipe))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(trace))
+    dev = _device_busy(trace)
+    trace.unlink()
+    by_class: dict = {}
+    for name, ms in dev["kernel_ms_by_name"].items():
+        c = _kernel_class(name)
+        by_class[c] = by_class.get(c, 0.0) + ms
+    top = sorted(dev["kernel_ms_by_name"].items(), key=lambda kv: -kv[1])
+    emit({"phase": "lm_train_profile", "step_ms_unprofiled": step_ms,
+          "profiled_wall_ms": wall_ms, "busy_ms": dev["busy_ms"],
+          "device_ops": dev["device_ops"],
+          "idle_share": 1 - dev["busy_ms"] / step_ms,
+          "kernel_ms_by_class": by_class,
+          "top_kernels_ms": [[k[:90], ms] for k, ms in top[:12]]})
+
+
+def lm_train_resume(torch, np) -> dict:
+    """The resume gate, deterministic algorithms on: qwen2-1.5b at full
+    width cut to TRAIN_RESUME["layers"] layers, TRAIN_RESUME["steps"] steps
+    straight, and again with `train.checkpoint` saving the params, the
+    AdamW state and the pipeline after TRAIN_RESUME["at"] and restoring
+    them into a model drawn from another seed and a fresh pipeline: every
+    parameter and state leaf, and every loss after the restore, bit-equal
+    to the straight run's.  The checkpoint goes to a temporary directory
+    that the phase deletes."""
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import schedules
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.steps import TrainConfig, make_train_step
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = dataclasses.replace(configs.get(TRAIN["arch"]),
+                                  num_layers=TRAIN_RESUME["layers"])
+        model = LM(cfg, device=DEVICE)
+        steps, at = TRAIN_RESUME["steps"], TRAIN_RESUME["at"]
+        ocfg = OptimizerConfig(name="adamw", lr=TRAIN["lr"])
+        step_fn = make_train_step(model, TrainConfig(
+            optimizer=ocfg, schedule=schedules.make(
+                "cosine", peak_lr=TRAIN["lr"], warmup=max(steps // 20, 5),
+                total=steps)))
+
+        def fresh(seed):
+            params = model.init(torch.Generator(device=DEVICE)
+                                .manual_seed(seed))
+            pipe = TokenPipeline(None, TokenPipelineConfig(
+                batch_size=TRAIN["batch"], seq_len=TRAIN["seq"],
+                vocab_size=cfg.vocab_size))
+            pipe.tokens = _stream(np)
+            return params, opt_lib.init(params, ocfg), pipe
+
+        params, state, pipe = fresh(0)
+        n_params = sum(t.numel() for t in opt_lib.leaves(params))
+        params, state, straight = _timed_steps(torch, step_fn, params,
+                                               state, pipe, steps)
+        want = ckpt._flatten((params, state))
+        params, state, pipe = fresh(0)
+        params, state, head = _timed_steps(torch, step_fn, params, state,
+                                           pipe, at)
+        tmp = Path(tempfile.mkdtemp(prefix="lm_resume_"))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = ckpt.save(tmp, at, (params, state),
+                          {"pipeline": pipe.state_dict()})
+            save_ms = (time.perf_counter() - t0) * 1e3
+            nbytes = sum(f.stat().st_size for f in d.rglob("*")
+                         if f.is_file())
+            del params, state, pipe
+            params, state, pipe = fresh(1)
+            t0 = time.perf_counter()
+            (params, state), extra = ckpt.restore(tmp, at, (params, state))
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            pipe.load_state_dict(extra["pipeline"])
+        finally:
+            shutil.rmtree(tmp)
+        params, state, tail = _timed_steps(torch, step_fn, params, state,
+                                           pipe, steps - at)
+        got = ckpt._flatten((params, state))
+        unequal = [k for k in want if not torch.equal(want[k], got[k])]
+        losses_equal = [r["loss"] for r in head + tail] == \
+            [r["loss"] for r in straight]
+        out = {"phase": "lm_train_resume", "model": cfg.name,
+               "layers": cfg.num_layers, "params": n_params,
+               "steps": steps, "saved_after": at, "save_ms": save_ms,
+               "restore_ms": restore_ms, "bytes_written": nbytes,
+               "leaves": len(want), "unequal_leaves": unequal[:10],
+               "losses_equal": losses_equal,
+               "step_ms_median": statistics.median(
+                   r["ms"] for r in straight[1:]),
+               "losses": [r["loss"] for r in straight]}
+        emit(out)
+        check(not unequal and losses_equal,
+              f"{cfg.name} resume: {len(unequal)} of {len(want)} leaves "
+              f"differ from the straight run's (first {unequal[:3]}), "
+              f"losses equal: {losses_equal}")
+        del params, state, want, got, model, step_fn
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_families(torch, np) -> list:
+    """One train step of each family of TRAIN_FAMILIES at its reduced
+    config in bf16 through `launch.train.build` (a vlm's patches from its
+    `FeatureStore.synthetic` through the TokenPipeline; whisper's frames
+    drawn here, which the trainer's pipeline cannot give: ROADMAP.md Queue 3
+    item 10), at a constant rate so that the step moves the params: a
+    finite loss and grad norm, every parameter leaf a gradient reaches
+    changed."""
+    from repro_torch.launch.train import build
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.steps import TrainConfig, make_train_step
+    fb = TRAIN_FAMILY_BATCH
+    rows = []
+    for arch in TRAIN_FAMILIES:
+        cfg, model, _, pipe, ocfg = build(
+            arch, reduced=True, batch=fb["batch"], seq=fb["seq"],
+            lr=fb["lr"], total_steps=10, schedule="cosine", device=DEVICE)
+        step_fn = make_train_step(model, TrainConfig(
+            optimizer=ocfg, schedule=lambda s: fb["lr"]))
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+        batch = _on_device(torch, next(pipe))
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy((np.random.default_rng(0)
+                .standard_normal((fb["batch"], cfg.encoder_seq, cfg.d_model))
+                * 0.1).astype(np.float32)).to(DEVICE)
+        before = [t.clone() for t in opt_lib.leaves(params)]
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, opt_lib.init(params, ocfg), batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        changed = sum(not torch.equal(a, b) for a, b in
+                      zip(before, opt_lib.leaves(params)))
+        row = {"model": cfg.name, "family": cfg.family,
+               "optimizer": ocfg.name, "dtype": str(cfg.param_dtype),
+               "batch": sorted(batch), "loss": loss, "grad_norm": gn,
+               "leaves": len(before), "leaves_changed": changed,
+               "step_ms": ms}
+        rows.append(row)
+        check(np.isfinite(loss) and np.isfinite(gn) and changed == len(before),
+              f"{cfg.name} train step: loss {loss}, grad norm {gn}, "
+              f"{changed} of {len(before)} leaves changed")
+        del params, state, model, step_fn, before
+    emit({"phase": "lm_train_families", "models": rows})
+    return rows
+
+
+def lm_train_guard(torch, np) -> None:
+    """A flash-configured model asked for a gradient on the card raises
+    (neither package has a backward for flash_attention) instead of
+    training without attention's gradients."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.steps import TrainConfig, make_train_step
+    cfg = dataclasses.replace(configs.get(TRAIN["arch"], reduced=True),
+                              attn_impl="flash")
+    model = LM(cfg, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    tokens = torch.zeros((1, 8), dtype=torch.int32, device=DEVICE)
+    step = make_train_step(model, TrainConfig(optimizer=OptimizerConfig()))
+    try:
+        step(params, opt_lib.init(params, OptimizerConfig()),
+             {"tokens": tokens, "labels": tokens})
+    except NotImplementedError as e:
+        emit({"phase": "lm_train_guard", "model": cfg.name,
+              "raised": str(e)[:120]})
+        return
+    fail("a flash model took a train step on the card")
+
+
+def lm_train(torch, np) -> dict:
+    """Phase 5c: the f32 gate, the full-width run, the resume gate, one
+    step of each family and the flash guard."""
+    lm_train_gate_f32(torch, np)
+    torch.cuda.empty_cache()
+    launches = lm_train_full(torch, np)
+    lm_train_resume(torch, np)
+    lm_train_families(torch, np)
+    lm_train_guard(torch, np)
+    torch.cuda.empty_cache()
+    return {TRAIN_PATH: launches}
+
+
 #: the kernels each main path must launch
 PATH_KERNELS = {
     "gids-device": ("segment_mean", "tiered_gather", "store_fill",
@@ -3664,6 +4156,7 @@ PATH_KERNELS = {
                     "llama4-maverick-400b-a17b", "arctic-480b",
                     "whisper-small")},
     family_path_name("mamba2-1.3b"): (),       # no attention, no kernel
+    TRAIN_PATH: (),                            # einsum attention, no kernel
 }
 
 
@@ -3766,6 +4259,8 @@ def main() -> int:
     by_path[LM_PATH] = lm_serve_path(torch, np)
     torch.cuda.empty_cache()
     by_path.update(lm_families(torch, np))
+    torch.cuda.empty_cache()
+    by_path.update(lm_train(torch, np))
     kernels = []
     for name, (source, replaces, parity) in SOURCES.items():
         m = measured[name]

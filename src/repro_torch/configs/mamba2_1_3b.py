@@ -19,4 +19,4 @@ def config() -> ModelConfig:
 def reduced_config() -> ModelConfig:
     return dataclasses.replace(
         config(), num_layers=4, d_model=64, vocab_size=512, vocab_pad_to=64,
-        ssm_state=16, ssm_headdim=8, ssm_chunk=8)
+        ssm_state=16, ssm_headdim=8, ssm_chunk=8, remat=False)

@@ -22,4 +22,4 @@ def reduced_config() -> ModelConfig:
     return dataclasses.replace(
         config(), num_layers=3, d_model=64, num_heads=4, num_kv_heads=4,
         d_ff=128, vocab_size=512, vocab_pad_to=64,
-        residual_scale=1.4 / math.sqrt(3))
+        residual_scale=1.4 / math.sqrt(3), remat=False)

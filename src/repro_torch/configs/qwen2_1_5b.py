@@ -17,4 +17,4 @@ def config() -> ModelConfig:
 def reduced_config() -> ModelConfig:
     return dataclasses.replace(
         config(), num_layers=3, d_model=64, num_heads=4, num_kv_heads=2,
-        d_ff=128, vocab_size=512, vocab_pad_to=64)
+        d_ff=128, vocab_size=512, vocab_pad_to=64, remat=False)

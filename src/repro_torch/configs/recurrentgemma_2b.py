@@ -22,4 +22,4 @@ def reduced_config() -> ModelConfig:
     return dataclasses.replace(
         config(), num_layers=5, d_model=64, num_heads=4, num_kv_heads=1,
         d_ff=128, vocab_size=512, vocab_pad_to=64, head_dim=16,
-        lru_width=64, local_window=16)
+        lru_width=64, local_window=16, remat=False)

@@ -21,4 +21,4 @@ def reduced_config() -> ModelConfig:
     return dataclasses.replace(
         config(), num_layers=2, encoder_layers=2, d_model=64, num_heads=4,
         num_kv_heads=4, d_ff=128, vocab_size=512, vocab_pad_to=64,
-        encoder_seq=32, max_position=128)
+        encoder_seq=32, max_position=128, remat=False)

@@ -17,7 +17,8 @@ from .dataplane import (BuildContext, DataPlane, DataPlaneSpec, TierSpec,
 from .faults import (BrownoutEvent, FailoverRouter, FaultInjector,
                      FaultSchedule, FaultedBurstResult, FlakyReadsEvent,
                      HedgePolicy, OutageEvent, RetryPolicy)
-from .feature_store import CoalescedReport, GatherReport, TieredFeatureStore
+from .feature_store import (CoalescedReport, FeatureStore, GatherReport,
+                            TieredFeatureStore)
 from .feedback import (AmortizedCost, MigrationEvent, QuotaController,
                        RefreshEvent, ShardHealthMonitor, ShardRebalancer,
                        TopologyRefresher, TouchTable)

@@ -28,8 +28,9 @@ from .constant_buffer import ConstantBuffer
 from .software_cache import WindowBufferedCache
 from .storage_sim import (IO_BYTES, coalesce_lines,
                           coalesce_lines_by_shard)
-from .tiers import (LATENCY_CLASSES, ConstantBufferTier, GatherPlan,
-                    HostStager, Tier, build_plan, build_plan_merged)
+from .tiers import (LATENCY_CLASSES, ConstantBufferTier, DeviceCacheTier,
+                    GatherPlan, HostStager, StorageTier, Tier, build_plan,
+                    build_plan_merged)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,3 +388,51 @@ class TieredFeatureStore:
         """The resident row store of a device tier, as `tiered_gather`
         consumes it with `GatherPlan.kernel_slots(tier_index)`."""
         return self.tiers[tier_index].device_rows()
+
+
+class FeatureStore(TieredFeatureStore):
+    """Classic keyword construction of the cache/cbuf/storage stack, the
+    reference's compatibility wrapper over `TieredFeatureStore`; new code
+    builds a stack through `DataPlaneSpec`.  The cache, where given, keeps
+    its row store on `device`, where the rows are delivered."""
+
+    def __init__(self, features: np.ndarray,
+                 cache: WindowBufferedCache | None = None,
+                 constant_buffer: ConstantBuffer | None = None,
+                 device: str | torch.device = "cuda"):
+        tiers: list[Tier] = []
+        if cache is not None:
+            tiers.append(DeviceCacheTier(cache, features, device=device))
+        if constant_buffer is not None:
+            tiers.append(ConstantBufferTier(
+                constant_buffer,
+                row_bytes=features.shape[1] * features.dtype.itemsize))
+        tiers.append(StorageTier(features))
+        super().__init__(tiers, device=device)
+
+    @classmethod
+    def memmap(cls, path: str, num_nodes: int, dim: int,
+               dtype=np.float32, create: bool = False, seed: int = 0,
+               **kw) -> "FeatureStore":
+        """Features in a file read through memmap, the storage namespace;
+        with `create`, the file is written first from default_rng(seed) in
+        64 slabs, as the reference writes it."""
+        mode = "w+" if create else "r+"
+        arr = np.memmap(path, dtype=dtype, mode=mode, shape=(num_nodes, dim))
+        if create:
+            rng = np.random.default_rng(seed)
+            step = max(1, num_nodes // 64)
+            for i in range(0, num_nodes, step):
+                j = min(num_nodes, i + step)
+                arr[i:j] = rng.standard_normal((j - i, dim), dtype=np.float32)
+            arr.flush()
+        return cls(arr, **kw)
+
+    @classmethod
+    def synthetic(cls, num_nodes: int, dim: int, dtype=np.float32,
+                  seed: int = 0, **kw) -> "FeatureStore":
+        """Features drawn in memory from default_rng(seed), as the
+        reference draws them."""
+        rng = np.random.default_rng(seed)
+        feats = rng.standard_normal((num_nodes, dim)).astype(dtype)
+        return cls(feats, **kw)

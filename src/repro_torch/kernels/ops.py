@@ -89,7 +89,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: torch.Tensor | None = None) -> torch.Tensor:
     """Attention of q (B, H, Sq, hd) over k, v (B, KV, Sk, hd); query i of
     sequence b sits at position q_offset[b] + i (0 + i without it), which
-    the causal and window masks count from."""
+    the causal and window masks count from.
+
+    Forward only, on both devices: neither package defines a backward for
+    the kernel, so a call that autograd would record raises instead of
+    returning an output with no graph behind it (and the CPU's plain
+    version must not train a model the card cannot)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention is forward only: neither the JAX package nor "
+            "the port defines a backward for the kernel; train with "
+            "attn_impl='einsum', or call it under torch.no_grad() or "
+            "torch.inference_mode()")
     tensors = (q, k, v) + ((q_offset,) if q_offset is not None else ())
     if _on_cpu(*tensors):
         return ref.attention_ref(q, k, v, causal=causal, window=window,

@@ -22,9 +22,14 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's `ModelConfig` with torch dtypes, less the fields of
-    training and of the launch slice (`remat`, `scan_unroll`,
-    `moe_2d_dispatch`; ROADMAP.md Queue 1 items 10-11)."""
+    """The reference's `ModelConfig` with torch dtypes, less the launch
+    slice's `moe_2d_dispatch` (ROADMAP.md Queue 1 item 11).
+
+    `remat` recomputes each layer group's forward in the backward pass
+    (`torch.utils.checkpoint`, as the reference's `jax.checkpoint`);
+    `scan_unroll` is accepted and changes nothing, because the port already
+    runs its layers in a Python loop, which is what the reference's unrolled
+    scan is."""
 
     name: str
     family: str                      # dense | moe | ssm | hybrid | encdec | vlm
@@ -72,7 +77,9 @@ class ModelConfig:
     # --- numerics -------------------------------------------------------------
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True               # recompute each layer in the backward
     attn_impl: str = "einsum"        # einsum | flash (the CUDA kernel)
+    scan_unroll: bool = False        # no effect: layers loop in Python
 
     @property
     def hd(self) -> int:

@@ -1,8 +1,8 @@
 """The LM, the port of `repro.models.transformer`: one model class whose
-config selects the layer plan, with its serving path, `prefill` and
-`decode_step` over a per-block cache (KV, RG-LRU or SSD state, and the
-cross-attention memory of the encoder-decoder).  `loss` and training wait
-(ROADMAP.md Queue 1 item 10).
+config selects the layer plan, with its training loss (`loss`, through
+autograd) and its serving path, `prefill` and `decode_step` over a
+per-block cache (KV, RG-LRU or SSD state, and the cross-attention memory
+of the encoder-decoder).
 
   dense / vlm        [("attn_dense",) x L]
   moe interleave=1   [("attn_moe",) x L]                       (arctic)
@@ -14,8 +14,12 @@ cross-attention memory of the encoder-decoder).  `loss` and training wait
 Parameters are a plain tree as in the reference (`{"embed", "final_norm",
 "stacks": [...], "unembed"?, "pos"?, "encoder"?, "frontend"?}`, each
 stack's leaves carrying a leading layer axis); a Python loop over that axis
-takes the place of `lax.scan`.  The cache is written in place: `prefill`
-and `decode_step` return the cache they were given, updated.
+takes the place of `lax.scan`.  A gradient of a stacked leaf accumulates
+the gradients of its layers' views.  With `cfg.remat`, each layer group's
+forward (each encoder layer's) runs under `torch.utils.checkpoint` when
+autograd records, as the reference wraps its scanned function in
+`jax.checkpoint`.  The cache is written in place: `prefill` and
+`decode_step` return the cache they were given, updated.
 
     model = LM(configs.get("qwen2_1_5b"), device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -28,6 +32,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -94,6 +99,18 @@ def _layer(tree: Any, g: int) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree[g]
     return {k: _layer(v, g) for k, v in tree.items()}
+
+
+def _unstack(tree: Any, n: int) -> list:
+    """The n layers' views of a stacked parameter tree, through one
+    `unbind` a leaf: its backward stacks the layers' gradients into one
+    tensor, where indexing each layer would add a zero-filled gradient of
+    the whole leaf per layer."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    by_key = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: layers[g] for k, layers in by_key.items()}
+            for g in range(n)]
 
 
 def _from_reference(defs: Any, tree: Any, device, path: str = "") -> Any:
@@ -274,19 +291,28 @@ class LM:
             return x + res_scale * s
         raise ValueError(kind)
 
+    def _remat(self) -> bool:
+        """Recompute layers in the backward: the config asks for it and
+        autograd records this forward."""
+        return self.cfg.remat and torch.is_grad_enabled()
+
     def _run_stacks(self, params: dict, x, *, mode="train", caches=None,
                     index=None, enc_out=None):
         for si, (kinds, n) in enumerate(self.plan):
-            stack_params = params["stacks"][si]
-            stack_cache = None if caches is None else caches[si]
-            for g in range(n):
-                gp = _layer(stack_params, g)
-                for i, kind in enumerate(kinds):
-                    gc = (None if stack_cache is None
-                          else _layer(stack_cache[f"b{i}"], g))
-                    x = self._apply_block(kind, gp[f"b{i}"], x, mode=mode,
-                                          cache=gc, index=index,
+            def group(h, gp, g, _kinds=kinds, _si=si):
+                for i, kind in enumerate(_kinds):
+                    cache = (None if caches is None
+                             else _layer(caches[_si][f"b{i}"], g))
+                    h = self._apply_block(kind, gp[f"b{i}"], h, mode=mode,
+                                          cache=cache, index=index,
                                           enc_out=enc_out)
+                return h
+
+            for g, gp in enumerate(_unstack(params["stacks"][si], n)):
+                if caches is None and self._remat():
+                    x = checkpoint(group, x, gp, g, use_reentrant=False)
+                else:
+                    x = group(x, gp, g)
         return x
 
     # ---- embedding / head ----------------------------------------------------
@@ -327,8 +353,13 @@ class LM:
         frames = torch.as_tensor(batch["frames"], device=self.device)
         x = frames.to(cfg.compute_dtype) @ enc["frontend"]
         x = x + enc["pos"][:x.shape[1]].to(x.dtype)
-        for g in range(cfg.encoder_layers):
-            x = self._apply_block("enc", _layer(enc["stack"], g)["b0"], x)
+
+        def layer(h, gp):
+            return self._apply_block("enc", gp["b0"], h)
+
+        for gp in _unstack(enc["stack"], cfg.encoder_layers):
+            x = (checkpoint(layer, x, gp, use_reentrant=False)
+                 if self._remat() else layer(x, gp))
         return L.apply_norm(enc["final_norm"], x, cfg)
 
     # ---- public API ----------------------------------------------------------
@@ -341,6 +372,22 @@ class LM:
         x = self._embed(params, batch)
         x = self._run_stacks(params, x, enc_out=enc_out)
         return self._head(params, x)
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy over the labels >= 0 (B, S), in
+        f32 from one f32 copy of the logits; a vlm batch's patch rows are
+        cut off first."""
+        logits = self.forward(params, batch)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        if self.cfg.frontend == "vision_stub" and "patches" in batch:
+            logits = logits[:, batch["patches"].shape[1]:, :]
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        # a masked label reads column 0; its term is multiplied by 0
+        lab = torch.take_along_dim(logits, labels.clamp_min(0)[..., None],
+                                   dim=-1)[..., 0]
+        mask = (labels >= 0).float()
+        return ((lse - lab) * mask).sum() / mask.sum().clamp_min(1.0)
 
     # ---- serving ----------------------------------------------------------
     def init_cache(self, batch_size: int, seq_len: int) -> list:

@@ -1,10 +1,12 @@
 """Checkpointing with atomic commit and pipeline-state capture, the port of
 `repro.train.checkpoint` for a tree on one device.
 
-  * a tree is nested dicts and lists (or tuples) of tensors; each leaf is
-    written as one raw .npy file keyed by its path, in the format the JAX
-    package writes for an unsharded array on one device, so either package
-    restores the other's checkpoints: dict keys sorted and joined with "/",
+  * a tree is nested dicts, lists, tuples and NamedTuples (the optimizer
+    states) of tensors; each leaf is written as one raw .npy file keyed by
+    its path, in the format the JAX package writes for an unsharded array
+    on one device, so either package restores the other's checkpoints: dict
+    keys sorted, a NamedTuple's items keyed by field name in field order,
+    list and tuple items by index, joined with "/",
     files `<key with . for />.0.npy`, the shard's `index` one `[null, null]`
     per dimension, bf16 stored as uint16 with `"bf16_as_u16": true`;
   * manifest.json records every leaf's shape and dtype plus the step and
@@ -35,11 +37,18 @@ import torch
 KEEP = 3
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _flatten(tree, prefix: str = "") -> dict[str, Any]:
-    """Leaves by path, in the JAX package's order: dict keys sorted, list
-    and tuple items by index."""
+    """Leaves by path, in the JAX package's order: dict keys sorted, a
+    NamedTuple's fields by name in field order, list and tuple items by
+    index."""
     if isinstance(tree, dict):
         items = ((str(k), tree[k]) for k in sorted(tree))
+    elif _is_namedtuple(tree):
+        items = ((f, getattr(tree, f)) for f in tree._fields)
     elif isinstance(tree, (list, tuple)):
         items = ((str(i), v) for i, v in enumerate(tree))
     else:
@@ -56,6 +65,9 @@ def _unflatten(like, flat: dict[str, Any], prefix: str = ""):
         return f"{prefix}/{k}" if prefix else str(k)
     if isinstance(like, dict):
         return {k: _unflatten(v, flat, key(k)) for k, v in like.items()}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(getattr(like, f), flat, key(f))
+                            for f in like._fields))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, flat, key(i))
                           for i, v in enumerate(like))
@@ -167,8 +179,8 @@ def _load_leaf(d: Path, entry: dict) -> torch.Tensor:
 
 def restore(ckpt_dir: str | Path, step: int, like: Any,
             shardings: Any | None = None) -> tuple[Any, dict]:
-    """Restore into the structure of `like` (nested dicts and lists of
-    tensors): each leaf lands on the device and in the dtype of its `like`
+    """Restore into the structure of `like` (nested dicts, lists, tuples
+    and NamedTuples of tensors): each leaf lands on the device and in the dtype of its `like`
     leaf.  Returns (tree, extra_state)."""
     if shardings is not None:
         raise NotImplementedError(

@@ -8,6 +8,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import json  # noqa: E402
+import typing  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -228,6 +229,55 @@ def test_each_package_restores_the_others_tree(tmp_path):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(np.asarray(a, np.float32),
                                       np.asarray(b, np.float32))
+
+
+class S(typing.NamedTuple):
+    """An optimizer state's shape: a step and trees beside the params."""
+    step: object
+    m: object
+    v: object
+
+
+def _state_trees():
+    """ROADMAP.md Queue 3 item 9's tree, ({"w"}, S(step, m, v)), in each
+    package."""
+    ones, zeros = np.ones((2, 3), np.float32), np.zeros((2, 3), np.float32)
+    jtree = ({"w": jnp.asarray(ones)},
+             S(step=jnp.asarray(1, jnp.int32), m={"w": jnp.asarray(zeros)},
+               v={"w": jnp.asarray(zeros + 2)}))
+    ttree = ({"w": torch.from_numpy(ones)},
+             S(step=torch.tensor(1, dtype=torch.int32),
+               m={"w": torch.from_numpy(zeros)},
+               v={"w": torch.from_numpy(zeros + 2)}))
+    return jtree, ttree
+
+
+def test_namedtuple_keyed_by_field_across_packages(tmp_path):
+    """A NamedTuple's items are keyed by field name, in field order, as
+    the reference keys them: both packages write the leaves 0/w, 1/step,
+    1/m/w and 1/v/w with the same manifest text; the port restores the
+    reference's checkpoint and its own into a NamedTuple, and the
+    reference restores the port's."""
+    jtree, ttree = _state_trees()
+    jdir = jckpt.save(tmp_path / "ref", 1, jtree)
+    tdir = ckpt.save(tmp_path / "port", 1, ttree)
+    jman = (jdir / "manifest.json").read_text()
+    assert list(json.loads(jman)["leaves"]) == ["0/w", "1/step", "1/m/w",
+                                                "1/v/w"]
+    assert (tdir / "manifest.json").read_text() == jman
+    like = (ttree[0], S(torch.tensor(0, dtype=torch.int32),
+                        {"w": torch.zeros(2, 3)}, {"w": torch.zeros(2, 3)}))
+    for src in (tmp_path / "ref", tmp_path / "port"):
+        got, _ = ckpt.restore(src, 1, like)
+        assert type(got[1]) is S
+        for a, b in zip(_leaves(ttree), _leaves(got), strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    j_from_t, _ = jckpt.restore(tmp_path / "port", 1, jtree)
+    assert type(j_from_t[1]) is S and int(j_from_t[1].step) == 1
+    for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(j_from_t),
+                    strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # -- the GNN's parameters across the packages -----------------------------------------

@@ -35,9 +35,9 @@ NEW = ["llama4_maverick_400b_a17b", "arctic_480b", "recurrentgemma_2b",
 #: at a lossless capacity factor
 EXTRA = {"llama4_maverick_400b_a17b": {"moe_capacity_factor": 100.0},
          "arctic_480b": {"moe_capacity_factor": 100.0}}
-#: ModelConfig fields of the reference that the port leaves to training and
-#: the launch slice (ROADMAP.md Queue 1 items 10-11)
-NOT_PORTED = ("remat", "scan_unroll", "moe_2d_dispatch")
+#: ModelConfig fields of the reference that the port leaves to the launch
+#: slice (ROADMAP.md Queue 1 item 11)
+NOT_PORTED = ("moe_2d_dispatch",)
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
@@ -85,7 +85,7 @@ def _t(batch):
 def test_config_matches_reference(arch):
     """configs.get returns all ten configs, full and reduced, equal to the
     reference's field for field (dtypes as their torch twins), but the
-    fields of training and the launch slice."""
+    launch slice's field."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     for reduced in (False, True):
         want = dataclasses.asdict(jconfigs.get(arch, reduced=reduced))
