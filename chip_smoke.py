@@ -241,13 +241,40 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    6 + `train.checkpoint` save + restore into a model from another seed
    and a fresh pipeline + 6; every parameter and optimizer-state leaf and
    every later loss bit-equal to the straight run's (prints save and
-   restore ms and the bytes written to a temporary directory it
-   deletes).  One step of recurrentgemma-2b, mamba2-1.3b, internvl2-1b
+   restore ms and the bytes written to a temporary directory, which
+   phase 6d restores from and then deletes).  One step of recurrentgemma-2b, mamba2-1.3b, internvl2-1b
    (patches from `FeatureStore.synthetic` through the pipeline),
    whisper-small (frames drawn here) and arctic-480b (Adafactor) at their
    reduced configs in bf16: finite loss and grad norm, every leaf moved.
    Last, a flash-configured model asked for a gradient must raise.
-6. One JSON line `{"kernels": [...]}` and, last, one JSON line naming the
+   Phase 5c also starts examples/quickstart_torch.py --device cpu in a
+   background process (phase 6e's twin) and keeps the gradients of one
+   more full-width step (phase 6c's input).
+6. The launch and distributed modules.  6a: the meta-device dry-run
+   (`repro_torch.launch.dryrun.run_cell`) over DRYRUN_CELLS, each
+   record's status, bottleneck, compute / memory / collective terms, peak
+   GiB per device and useful ratio; gates: the expected statuses, finite
+   positive terms.  6b: phase 5c's own step built as a `Cell` by hand
+   (qwen2-1.5b full, batch 8 x 1024, AdamW, remat, the trainer's
+   schedule) on `make_host_mesh()` and costed on meta; its predicted
+   compute, memory and step terms and peak beside phase 5c's measured
+   step, peak and matmul / element-wise busy ms.  Gates: the roofline's
+   step is at most the measured one; the counted FLOPs lie within
+   [6 N T, 9 N T + the einsum attention's].  6c:
+   `compress_grads` over phase 5c's gradient tree (bf16, f32 error),
+   COMPRESS["calls"] times with error feedback, each call timed by CUDA
+   events against its bytes bound (two passes over g and e, one write of
+   each output: 20 B an element) and the eager byte count; gates: every
+   leaf's residual within s/2 + 1e-7, the telescoping bound of
+   tests/test_optimizer.py:66-83, COMPRESS["cpu_leaves"] bit-equal to the
+   port's CPU run on the same inputs, `psum_compressed` over the host mesh
+   the identity.  6d: phase 5c's 2-layer resume checkpoint restored with
+   `shardings=` (the tp param specs and their ZeRO-1 AdamW specs) onto
+   the host mesh: every leaf a DTensor on the card, placed as its spec,
+   bit-equal to the tree that was saved.  6e: examples/quickstart_torch.py
+   --device cuda in this process: every line it prints but the wall-clock
+   ones equal to the CPU twin's, and the host planes' kernels launched.
+7. One JSON line `{"kernels": [...]}` and, last, one JSON line naming the
    device.
 
     python3 chip_smoke.py --plant-fault band_edge|full_lo
@@ -268,12 +295,15 @@ The script imports torch, numpy and the port (src/repro_torch) only.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -3891,8 +3921,19 @@ def lm_train_full(torch, np) -> dict:
     check(not any(launches.values()),
           f"{cfg.name} train: kernels launched on the einsum path: "
           f"{launches}")
-    lm_train_profile(torch, step_fn, params, state, pipe, step_ms)
-    del params, state, model, step_fn
+    prof = lm_train_profile(torch, step_fn, params, state, pipe, step_ms)
+    # phase 6's inputs: the measured step, and one more step's gradients
+    from repro_torch.train import steps as steps_lib
+    del state
+    torch.cuda.empty_cache()
+    _, grads = steps_lib._grads(model, params, _on_device(torch, next(pipe)))
+    it = iter(grads)
+    TRAIN_MEASURED.update(
+        step_ms=step_ms, peak_mem_bytes=out["peak_mem_bytes"],
+        params=n_params, kernel_ms_by_class=prof["kernel_ms_by_class"],
+        device_ops=prof["device_ops"], busy_ms=prof["busy_ms"],
+        grads=opt_lib.tree_map(lambda _: next(it), params))
+    del params, model, step_fn, grads, it
     torch.cuda.empty_cache()
     return launches
 
@@ -3936,12 +3977,14 @@ def lm_train_profile(torch, step_fn, params, state, pipe,
         c = _kernel_class(name)
         by_class[c] = by_class.get(c, 0.0) + ms
     top = sorted(dev["kernel_ms_by_name"].items(), key=lambda kv: -kv[1])
-    emit({"phase": "lm_train_profile", "step_ms_unprofiled": step_ms,
-          "profiled_wall_ms": wall_ms, "busy_ms": dev["busy_ms"],
-          "device_ops": dev["device_ops"],
-          "idle_share": 1 - dev["busy_ms"] / step_ms,
-          "kernel_ms_by_class": by_class,
-          "top_kernels_ms": [[k[:90], ms] for k, ms in top[:12]]})
+    out = {"phase": "lm_train_profile", "step_ms_unprofiled": step_ms,
+           "profiled_wall_ms": wall_ms, "busy_ms": dev["busy_ms"],
+           "device_ops": dev["device_ops"],
+           "idle_share": 1 - dev["busy_ms"] / step_ms,
+           "kernel_ms_by_class": by_class,
+           "top_kernels_ms": [[k[:90], ms] for k, ms in top[:12]]}
+    emit(out)
+    return out
 
 
 def lm_train_resume(torch, np) -> dict:
@@ -3953,8 +3996,6 @@ def lm_train_resume(torch, np) -> dict:
     parameter and state leaf, and every loss after the restore, bit-equal
     to the straight run's.  The checkpoint goes to a temporary directory
     that the phase deletes."""
-    import shutil
-    import tempfile
     from repro_torch import configs
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
     from repro_torch.models.transformer import LM
@@ -3993,24 +4034,27 @@ def lm_train_resume(torch, np) -> dict:
         params, state, pipe = fresh(0)
         params, state, head = _timed_steps(torch, step_fn, params, state,
                                            pipe, at)
+        # phase 6d restores this checkpoint onto a mesh and then deletes it
         tmp = Path(tempfile.mkdtemp(prefix="lm_resume_"))
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            d = ckpt.save(tmp, at, (params, state),
-                          {"pipeline": pipe.state_dict()})
-            save_ms = (time.perf_counter() - t0) * 1e3
-            nbytes = sum(f.stat().st_size for f in d.rglob("*")
-                         if f.is_file())
-            del params, state, pipe
-            params, state, pipe = fresh(1)
-            t0 = time.perf_counter()
-            (params, state), extra = ckpt.restore(tmp, at, (params, state))
-            torch.cuda.synchronize()
-            restore_ms = (time.perf_counter() - t0) * 1e3
-            pipe.load_state_dict(extra["pipeline"])
-        finally:
-            shutil.rmtree(tmp)
+        atexit.register(shutil.rmtree, tmp, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = ckpt.save(tmp, at, (params, state),
+                      {"pipeline": pipe.state_dict()})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(f.stat().st_size for f in d.rglob("*")
+                     if f.is_file())
+        TRAIN_MEASURED["resume"] = dict(
+            dir=tmp, step=at, cfg=cfg, saved=ckpt._unflatten(
+                (params, state), {k: v.clone() for k, v in
+                                  ckpt._flatten((params, state)).items()}))
+        del params, state, pipe
+        params, state, pipe = fresh(1)
+        t0 = time.perf_counter()
+        (params, state), extra = ckpt.restore(tmp, at, (params, state))
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        pipe.load_state_dict(extra["pipeline"])
         params, state, tail = _timed_steps(torch, step_fn, params, state,
                                            pipe, steps - at)
         got = ckpt._flatten((params, state))
@@ -4111,7 +4155,9 @@ def lm_train_guard(torch, np) -> None:
 
 def lm_train(torch, np) -> dict:
     """Phase 5c: the f32 gate, the full-width run, the resume gate, one
-    step of each family and the flash guard."""
+    step of each family and the flash guard.  Starts phase 6e's CPU twin
+    first: the card is busy through 5c, the host mostly idle."""
+    quickstart_cpu_start()
     lm_train_gate_f32(torch, np)
     torch.cuda.empty_cache()
     launches = lm_train_full(torch, np)
@@ -4120,6 +4166,376 @@ def lm_train(torch, np) -> dict:
     lm_train_guard(torch, np)
     torch.cuda.empty_cache()
     return {TRAIN_PATH: launches}
+
+
+# -- phase 6 ---------------------------------------------------------------------
+
+#: phase 5c's measured step and its inputs for phase 6 (filled by phase 5c)
+TRAIN_MEASURED: dict = {}
+#: 6a: (arch, shape, multi_pod, expected status)
+DRYRUN_CELLS = (("qwen2_1_5b", "train_4k", False, "OK"),
+                ("qwen2_1_5b", "prefill_32k", False, "OK"),
+                ("qwen2_1_5b", "decode_32k", False, "OK"),
+                ("qwen2_1_5b", "long_500k", False, "SKIP(full-attention)"),
+                ("llama4_maverick_400b_a17b", "train_4k", False, "OK"),
+                ("llama4_maverick_400b_a17b", "train_4k", True, "OK"))
+#: 6c: error-feedback calls over the full-width gradient tree, and the
+#: leaves also compressed on the host CPU and compared bit for bit
+COMPRESS = dict(calls=5, cpu_leaves=("stacks/0/b0/attn/wk",
+                                     "stacks/0/b0/attn/bq"))
+#: 6c's bytes bound per element: g (bf16) and e (f32) read twice (the scale
+#: needs the whole leaf's max first), the dequantized and error leaves
+#: (f32) written once
+COMPRESS_BYTES_PER_ELEMENT = 2 * (2 + 4) + 4 + 4
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+QUICKSTART_PATH = "quickstart"
+#: phase 6e's CPU twin: its process, its directory, its start time
+QUICKSTART_CPU: dict = {}
+
+
+def quickstart_cpu_start() -> None:
+    """examples/quickstart_torch.py --device cpu in a background process
+    (no card visible to it, two threads), for phase 6e."""
+    tmp = tempfile.mkdtemp(prefix="quickstart_cpu_")
+    atexit.register(shutil.rmtree, tmp, True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    proc = subprocess.Popen([sys.executable, str(QUICKSTART), "--device",
+                             "cpu"], cwd=tmp, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    atexit.register(proc.kill)
+    QUICKSTART_CPU.update(proc=proc, dir=tmp, t0=time.perf_counter())
+
+
+def _priced_lines(text: str) -> list:
+    """The quickstart's lines but the wall-clock ones of its last
+    section."""
+    return [line for line in text.splitlines()
+            if not line.rstrip().endswith("spans)")]
+
+
+def dryrun_sweep(torch, np) -> list:
+    """6a: the dry-run on the meta device over DRYRUN_CELLS."""
+    from repro_torch.launch import dryrun
+    rows = []
+    for arch, shape, multi_pod, want in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod)
+        row = {"arch": arch, "shape": shape, "mesh": rec["mesh"],
+               "status": rec["status"],
+               "seconds": time.perf_counter() - t0}
+        if rec["status"] == "OK":
+            r = rec["roofline"]
+            row.update(strategy=rec["strategy"], bottleneck=r["bottleneck"],
+                       compute_s=r["compute_term"],
+                       memory_s=r["memory_term"],
+                       collective_s=r["collective_term"],
+                       peak_gib=rec["memory"]["peak_per_device_gib"],
+                       useful_ratio=r["useful_ratio"], ops=rec["cost"]["ops"])
+            check(all(np.isfinite(row[k]) and row[k] > 0 for k in
+                      ("compute_s", "memory_s", "collective_s", "peak_gib",
+                       "useful_ratio")),
+                  f"dry-run {arch} {shape}: a term is not finite and "
+                  f"positive: {row}")
+        rows.append(row)
+        check(rec["status"] == want,
+              f"dry-run {arch} {shape} {rec['mesh']}: {rec['status']}, "
+              f"expected {want}")
+    emit({"phase": "dryrun", "device": "meta", "cells": rows})
+    return rows
+
+
+def _phase5c_cell(torch):
+    """Phase 5c's step as a Cell on the host mesh: the trainer's model and
+    step on the meta device, params, AdamW state and batch placed by the
+    tp rules (ZeRO-1 for the state)."""
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.launch.mesh import (NamedSharding, Placed,
+                                         make_host_mesh, map_tree, specs)
+    from repro_torch.launch.train import build
+    from repro_torch.models.common import abstract_params, sharding_rules
+    from repro_torch.train import optimizer as opt_lib
+    mesh = make_host_mesh(DEVICE)
+    cfg, model, step_fn, _, ocfg = build(
+        TRAIN["arch"], reduced=False, batch=TRAIN["batch"], seq=TRAIN["seq"],
+        lr=TRAIN["lr"], total_steps=TRAIN["steps"], schedule="cosine",
+        device="meta")
+    rules = sharding_rules("tp")
+    params = abstract_params(model.param_defs(), rules, mesh)
+    state = opt_lib.abstract_state(ocfg.name, params, ocfg)
+    ospecs = opt_lib.opt_state_pspecs(
+        ocfg.name, map_tree(lambda p: p.shape, params), specs(params), mesh)
+    state = map_tree(lambda t, sp: Placed(t, NamedSharding(mesh, sp)),
+                     state, ospecs)
+    batch = specs_lib.batch_specs(cfg, mesh, TRAIN["batch"], TRAIN["seq"],
+                                  False)
+    cell = specs_lib.Cell(arch=TRAIN["arch"], shape="phase-5c", cfg=cfg,
+                          model=model, kind="train",
+                          abstract_args=(params, state, batch),
+                          step_fn=step_fn, rules=rules, batch=TRAIN["batch"],
+                          seq=TRAIN["seq"])
+    return cell, mesh
+
+
+def roofline_check(torch, np) -> dict:
+    """6b: the roofline of phase 5c's own step against its measurement."""
+    from repro_torch.launch import dryrun, roofline
+    cell, mesh = _phase5c_cell(torch)
+    t0 = time.perf_counter()
+    cost = dryrun.cost_cell(cell, mesh, False)
+    seconds = time.perf_counter() - t0
+    roof = roofline.analyze(cost["flops"], cost["hbm"], cost["coll"],
+                            chips=mesh.size)
+    cfg = cell.cfg
+    n, tokens = TRAIN["params"], TRAIN["batch"] * TRAIN["seq"]
+    # the einsum attention's products: scores and values, forward, remat's
+    # forward and the two gradients of each
+    attn = 4 * 4 * TRAIN["batch"] * TRAIN["seq"] ** 2 * cfg.num_heads \
+        * cfg.hd * cfg.num_layers
+    m = TRAIN_MEASURED
+    by_class = m["kernel_ms_by_class"]
+    out = {"phase": "roofline_check", "model": cfg.name,
+           "mesh": mesh.shape, "count_s": seconds,
+           "flops": cost["flops"], "flops_per_n_tokens":
+           cost["flops"] / (n * tokens), "attention_flops": attn,
+           "hbm_bytes": cost["hbm"], "ops": cost["ops"],
+           "predicted_compute_ms": roof.compute_term * 1e3,
+           "predicted_memory_ms": roof.memory_term * 1e3,
+           "predicted_step_ms": roof.step_time_s * 1e3,
+           "bottleneck": roof.bottleneck,
+           "predicted_peak_gb": cost["memory"]["peak_per_device_gib"]
+           * 2**30 / 1e9,
+           "measured_step_ms": m["step_ms"],
+           "measured_peak_gb": m["peak_mem_bytes"] / 1e9,
+           "measured_busy_ms": m["busy_ms"],
+           "measured_device_ops": m["device_ops"],
+           "measured_matmul_ms": by_class.get("matmul", 0.0),
+           "measured_elementwise_ms": by_class.get("elementwise", 0.0),
+           "hbm_bytes_by_op": cost["by_op_bytes"]}
+    out["predicted_over_measured"] = out["predicted_step_ms"] / m["step_ms"]
+    emit(out)
+    check(out["predicted_step_ms"] <= m["step_ms"],
+          f"roofline: predicted step {out['predicted_step_ms']} ms above "
+          f"the measured {m['step_ms']} ms; the model is wrong")
+    check(6 * n * tokens <= cost["flops"] <= 9 * n * tokens + attn,
+          f"roofline: {cost['flops']} FLOPs outside [6 N T, 9 N T + "
+          f"{attn}]")
+    return out
+
+
+def _bits(torch, t):
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def compression(torch, np) -> dict:
+    """6c: compress_grads over phase 5c's gradient tree on the card."""
+    from repro_torch.distributed import compression as comp
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import checkpoint as ckpt
+    grads = TRAIN_MEASURED.pop("grads")
+    flat_g = ckpt._flatten(grads)
+    n = sum(t.numel() for t in flat_g.values())
+    by_dtype: dict = {}
+    for t in flat_g.values():
+        by_dtype[str(t.dtype)] = by_dtype.get(str(t.dtype), 0) + t.numel()
+    check(n == TRAIN["params"] and all(t.device.type == DEVICE
+                                       for t in flat_g.values()),
+          f"compress: the gradient tree has {n} elements, not "
+          f"{TRAIN['params']} on the card")
+    meta = {k: torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for k, t in flat_g.items()}
+    _, eager = roofline.count(comp.compress_grads, meta,
+                              comp.init_error(meta))
+    err = comp.init_error(grads)
+    applied = {k: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+               for k, t in flat_g.items()}
+    ms, worst, last_deq = [], 0.0, {}
+    for _ in range(COMPRESS["calls"]):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        deq, new_err = comp.compress_grads(grads, err)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        flat_e, flat_ne = ckpt._flatten(err), ckpt._flatten(new_err)
+        for k, d in ckpt._flatten(deq).items():
+            g32 = flat_g[k].float() + flat_e[k]
+            s = float(g32.abs().max()) / 127.0 + 1e-12
+            r = float(flat_ne[k].abs().max())
+            worst = max(worst, r / (s / 2 + 1e-7))
+            check(r <= s / 2 + 1e-7, f"compress {k}: residual {r} above "
+                  f"s/2 + 1e-7 = {s / 2 + 1e-7}")
+            applied[k].add_(d)
+            if k in COMPRESS["cpu_leaves"]:
+                last_deq[k] = d
+            del g32
+        del deq, flat_e
+        err = new_err
+        del flat_ne, new_err
+    flat_e = ckpt._flatten(err)
+    tele = 0.0
+    for k, g in flat_g.items():
+        gf = g.float()
+        true = gf.clone()
+        for _ in range(COMPRESS["calls"] - 1):
+            true.add_(gf)
+        resid = float((applied[k] - true).abs().max())
+        last = float((gf + flat_e[k]).abs().max()) / 127.0
+        tele = max(tele, resid / (2 * max(last, 1e-6)))
+        check(resid <= 2 * max(last, 1e-6),
+              f"compress {k}: telescoping residual {resid} above "
+              f"{2 * max(last, 1e-6)}")
+        del gf, true
+    del applied
+    cpu_equal = {}
+    # the last call's dequantized leaf and error, bit for bit against five
+    # calls of the port's CPU path on the same gradient leaf
+    for k in COMPRESS["cpu_leaves"]:
+        g = flat_g[k].cpu()
+        e = comp.init_error(g)
+        for _ in range(COMPRESS["calls"]):
+            d, e = comp.compress_grads(g, e)
+        cpu_equal[k] = bool(
+            torch.equal(_bits(torch, d), _bits(torch, last_deq[k].cpu()))
+            and torch.equal(_bits(torch, e), _bits(torch, flat_e[k].cpu())))
+    check(all(cpu_equal.values()),
+          f"compress: card and CPU differ on {cpu_equal}")
+    mesh = make_host_mesh(DEVICE)
+    same = comp.psum_compressed(grads, err, mesh)
+    check(same[0] is grads and same[1] is err,
+          "compress: psum_compressed over the host mesh is not the identity")
+    steady = statistics.median(ms[1:])
+    bound_ms = COMPRESS_BYTES_PER_ELEMENT * n / HBM_BYTES_PER_S * 1e3
+    out = {"phase": "compress", "elements": n, "leaves": len(flat_g),
+           "elements_by_dtype": by_dtype,
+           "calls_ms": ms, "ms": steady, "bound_ms": bound_ms,
+           "bound_bytes_per_element": COMPRESS_BYTES_PER_ELEMENT,
+           "eager_bytes_per_element": eager.hbm_bytes / n,
+           "eager_ops": eager.ops, "eager_bound_ms":
+           eager.hbm_bytes / HBM_BYTES_PER_S * 1e3,
+           "share_of_bound": bound_ms / steady,
+           "worst_residual_over_half_step": worst,
+           "worst_telescoping_over_bound": tele,
+           "cpu_bit_equal": cpu_equal, "psum_host_mesh_identity": True}
+    emit(out)
+    del grads, err, flat_g, flat_e, same, last_deq
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_restore(torch, np) -> dict:
+    """6d: phase 5c's 2-layer checkpoint restored onto the host mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_host_mesh, shardings
+    from repro_torch.models.common import (param_pspecs, sharding_rules,
+                                           tree_map_defs)
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    info = TRAIN_MEASURED.pop("resume")
+    try:
+        mesh = make_host_mesh(DEVICE)
+        defs = LM(info["cfg"], device="meta").param_defs()
+        pspecs = param_pspecs(defs, sharding_rules("tp"), mesh)
+        ospecs = opt_lib.opt_state_pspecs(
+            "adamw", tree_map_defs(lambda d: d.shape, defs), pspecs, mesh)
+        sh = shardings(mesh, (pspecs, ospecs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, _ = ckpt.restore(info["dir"], info["step"], info["saved"],
+                               shardings=sh)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        got, want = ckpt._flatten(tree), ckpt._flatten(info["saved"])
+        flat_sh = ckpt._flatten(sh)
+        unequal = [k for k in want
+                   if not (isinstance(got[k], DTensor)
+                           and got[k].device.type == DEVICE
+                           and torch.equal(_bits(torch, got[k].to_local()),
+                                           _bits(torch, want[k])))]
+        misplaced = [k for k in want if got[k].placements
+                     != mesh.placements(flat_sh[k].spec)]
+        specs_used = sorted({str(flat_sh[k].spec) for k in want})
+        out = {"phase": "elastic_restore", "model": info["cfg"].name,
+               "layers": info["cfg"].num_layers, "mesh": mesh.shape,
+               "leaves": len(want), "restore_ms": restore_ms,
+               "specs": specs_used, "unequal_leaves": unequal[:10],
+               "misplaced_leaves": misplaced[:10]}
+        emit(out)
+        check(not unequal and not misplaced,
+              f"elastic restore: {len(unequal)} leaves differ, "
+              f"{len(misplaced)} misplaced")
+        del tree, got, want
+    finally:
+        shutil.rmtree(info["dir"], ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    del info
+    torch.cuda.empty_cache()
+    return out
+
+
+def quickstart_card(torch, np) -> dict:
+    """6e: the quickstart twin on the card, in this process (its kernel
+    launches counted), against its CPU twin's lines."""
+    import contextlib
+    import io
+    import runpy
+    from repro_torch.kernels import _build
+    buf = io.StringIO()
+    cwd, argv = os.getcwd(), sys.argv
+    tmp = tempfile.mkdtemp(prefix="quickstart_cuda_")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(tmp)
+        sys.argv = [str(QUICKSTART), "--device", DEVICE]
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(QUICKSTART), run_name="__main__")
+        torch.cuda.synchronize()
+        trace_bytes = (Path(tmp) / "trace.json").stat().st_size
+    finally:
+        sys.argv = argv
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    proc = QUICKSTART_CPU["proc"]
+    cpu_out, cpu_err = proc.communicate(timeout=900)
+    cpu_s = time.perf_counter() - QUICKSTART_CPU["t0"]
+    check(proc.returncode == 0,
+          f"quickstart on the CPU exited {proc.returncode}: {cpu_err[-800:]}")
+    card, cpu = _priced_lines(buf.getvalue()), _priced_lines(cpu_out)
+    differ = [(a, b) for a, b in zip(card, cpu) if a != b]
+    out = {"phase": "main_path", "plane": QUICKSTART_PATH,
+           "script": "examples/quickstart_torch.py", "seconds": seconds,
+           "cpu_twin_seconds_since_start": cpu_s, "lines": len(card),
+           "cpu_lines": len(cpu), "differing": differ[:5],
+           "trace_bytes": trace_bytes, "launches": launches,
+           "wall_lines": [line for line in buf.getvalue().splitlines()
+                          if line not in card]}
+    emit(out)
+    check(len(card) == len(cpu) and not differ and len(card) > 40,
+          f"quickstart: {len(differ)} priced lines differ from the CPU "
+          f"twin's ({len(card)} against {len(cpu)} lines)")
+    for name in PATH_KERNELS[QUICKSTART_PATH]:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on {QUICKSTART_PATH}")
+    return launches
+
+
+def launch_and_distributed(torch, np) -> dict:
+    """Phase 6: the dry-run, the roofline against phase 5c, compression at
+    full width, the elastic restore and the quickstart twin."""
+    dryrun_sweep(torch, np)
+    roofline_check(torch, np)
+    compression(torch, np)
+    elastic_restore(torch, np)
+    return {QUICKSTART_PATH: quickstart_card(torch, np)}
 
 
 #: the kernels each main path must launch
@@ -4157,6 +4573,8 @@ PATH_KERNELS = {
                     "whisper-small")},
     family_path_name("mamba2-1.3b"): (),       # no attention, no kernel
     TRAIN_PATH: (),                            # einsum attention, no kernel
+    QUICKSTART_PATH: ("tiered_gather", "tiered_gather_unique", "store_fill",
+                      "frontier_read"),
 }
 
 
@@ -4261,6 +4679,8 @@ def main() -> int:
     by_path.update(lm_families(torch, np))
     torch.cuda.empty_cache()
     by_path.update(lm_train(torch, np))
+    torch.cuda.empty_cache()
+    by_path.update(launch_and_distributed(torch, np))
     kernels = []
     for name, (source, replaces, parity) in SOURCES.items():
         m = measured[name]

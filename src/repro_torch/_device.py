@@ -6,12 +6,13 @@ import torch
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """`device` as a torch.device; raises for CUDA when no card is present,
-    instead of carrying on on the CPU."""
+    instead of carrying on on the CPU.  "meta" (shapes and dtypes, no
+    values) is taken only where the caller names it: the dry-run does."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -16,6 +16,12 @@ from . import tiered_gather as _tiered_gather
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True on the CPU, False on the card; a meta tensor has no values for
+    a kernel to read, so it raises instead of reaching a launch."""
+    if any(t.device.type == "meta" for t in tensors):
+        raise ValueError("a meta tensor reached a kernel of the port; the "
+                         "dry-run runs attention as attn_impl 'einsum' or "
+                         "'flash_stub'")
     return all(t.device.type == "cpu" for t in tensors)
 
 

@@ -1,7 +1,16 @@
-"""Model configuration and parameter-spec machinery, the port's subset of
-`repro.models.common`: `ModelConfig`, `ParamDef`, `init_params` and
-`param_count`.  The sharding rules, `abstract_params` and `param_pspecs`
-wait for the launch and distributed slice (ROADMAP.md Queue 1 item 11).
+"""Model configuration and parameter-spec machinery, the port of
+`repro.models.common`.
+
+Every architecture declares its parameters once as `ParamDef`s (shape,
+logical axes, init); from that one source come
+  * materialised params (`init_params`),
+  * abstract params on the meta device with their placements for the
+    dry-run (`abstract_params`),
+  * PartitionSpecs under a sharding strategy (`param_pspecs`).
+
+Logical axis names resolve to mesh axes through a rules table; a dim not
+divisible by its mesh axes' size falls back to replication, as in the
+reference.
 
 Initial values come from an explicit `torch.Generator` and are drawn on
 its device, so a CUDA generator fills a full-width model on the card;
@@ -19,11 +28,12 @@ from typing import Any
 
 import torch
 
+from repro_torch.launch.mesh import Mesh, NamedSharding, P, Placed
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's `ModelConfig` with torch dtypes, less the launch
-    slice's `moe_2d_dispatch` (ROADMAP.md Queue 1 item 11).
+    """The reference's `ModelConfig` with torch dtypes.
 
     `remat` recomputes each layer group's forward in the backward pass
     (`torch.utils.checkpoint`, as the reference's `jax.checkpoint`);
@@ -78,8 +88,12 @@ class ModelConfig:
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True               # recompute each layer in the backward
-    attn_impl: str = "einsum"        # einsum | flash (the CUDA kernel)
+    attn_impl: str = "einsum"        # einsum | flash (the CUDA kernel) |
+                                     # flash_stub (the dry-run's stand-in)
     scan_unroll: bool = False        # no effect: layers loop in Python
+    moe_2d_dispatch: bool = False    # serving: shard dispatch d_model over
+                                     # data (weight-stationary experts) —
+                                     # see launch/specs.activation_specs
 
     @property
     def hd(self) -> int:
@@ -159,12 +173,90 @@ def init_params(defs: ParamTree, generator: torch.Generator) -> Any:
     return {k: init_params(defs[k], generator) for k in sorted(defs)}
 
 
+# --------------------------------------------------------------------------
+# sharding rules
+# --------------------------------------------------------------------------
+# logical axis -> mesh axis (or None). Tuple values shard over several axes.
+def sharding_rules(strategy: str, multi_pod: bool = False) -> dict:
+    batch = ("pod", "data") if multi_pod else ("data",)
+    base = {
+        "batch": batch,
+        "seq": None,
+        "layers": None,            # the layer axis, never sharded
+        "vocab": "model",
+        "embed": None,             # d_model
+        "qkv": "model",            # fused head*hd projection dim
+        "heads": "model",          # falls back to None if not divisible
+        "kv_heads": "model",
+        "head_dim": None,
+        "ffn": "model",
+        "expert": "model",         # EP
+        "expert_ffn": None,
+        "ssm_inner": "model",
+        "ssm_heads": "model",
+        "ssm_state": None,
+        "lru": "model",
+        "conv": None,
+    }
+    if strategy == "tp":
+        pass
+    elif strategy == "fsdp_tp":
+        # ZeRO-3 style: the d_model dim of weights also over the data axis,
+        # all-gathered per layer
+        base["embed"] = "data"
+        base["expert_ffn"] = "data"
+    elif strategy == "ep_tp":
+        # serving layout: weight-stationary experts, the expert dim over
+        # data, ffn dims over model
+        base["expert"] = "data"
+        base["expert_ffn"] = None
+    elif strategy == "dp":
+        for k in ("vocab", "qkv", "heads", "kv_heads", "ffn", "expert",
+                  "ssm_inner", "ssm_heads", "lru"):
+            base[k] = None
+    else:
+        raise ValueError(strategy)
+    return base
+
+
+def resolve_pspec(pdef: ParamDef, rules: dict, mesh: Mesh) -> P:
+    """Logical axes -> PartitionSpec with the divisibility fallback."""
+    used: set = set()
+    out = []
+    for dim, ax in zip(pdef.shape, pdef.axes):
+        mesh_ax = rules.get(ax) if ax else None
+        if mesh_ax is None:
+            out.append(None)
+            continue
+        axes_tuple = (mesh_ax,) if isinstance(mesh_ax, str) else tuple(mesh_ax)
+        size = math.prod(mesh.shape[a] for a in axes_tuple)
+        if dim % size != 0 or any(a in used for a in axes_tuple):
+            out.append(None)
+            continue
+        used.update(axes_tuple)
+        out.append(mesh_ax)
+    return P(*out)
+
+
 def tree_map_defs(fn, defs: ParamTree) -> Any:
     if isinstance(defs, ParamDef):
         return fn(defs)
     if isinstance(defs, list):
         return [tree_map_defs(fn, d) for d in defs]
     return {k: tree_map_defs(fn, v) for k, v in defs.items()}
+
+
+def abstract_params(defs: ParamTree, rules: dict, mesh: Mesh) -> Any:
+    """Each leaf as a `Placed` meta tensor of its shape and dtype and its
+    sharding; nothing is allocated and no initializer runs."""
+    def mk(d: ParamDef) -> Placed:
+        return Placed(torch.empty(d.shape, dtype=d.dtype, device="meta"),
+                      NamedSharding(mesh, resolve_pspec(d, rules, mesh)))
+    return tree_map_defs(mk, defs)
+
+
+def param_pspecs(defs: ParamTree, rules: dict, mesh: Mesh) -> Any:
+    return tree_map_defs(lambda d: resolve_pspec(d, rules, mesh), defs)
 
 
 def param_count(defs: ParamTree) -> int:

@@ -6,15 +6,16 @@ the MLP and the capacity-based mixture of experts.
 
 Functions take params in and give activations out, as in the reference,
 with one exception: a KV cache passed to `attention` is written in place
-(the reference returns an updated copy).  The reference's activation
-sharding constraints (`repro.distributed.ctx.constrain`) are the identity
-on one card and are left out.
+(the reference returns an updated copy).  The activation-sharding anchors
+(`repro_torch.distributed.ctx.constrain`) sit where the reference's do;
+on one device each returns its tensor unchanged.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import constrain as _constrain
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, ParamDef
 
@@ -153,6 +154,11 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  read as it is and no K/V are computed (decode)
     returns (out, (k, v) cache or None)
 
+    attn_impl "flash_stub" is the reference's dry-run stand-in on that same
+    branch: q plus the mean key and the mean value of each kv head, which
+    reads q and the whole K/V once and writes the output, the kernel's
+    memory traffic without its S^2 work (plain torch on every device).
+
     attn_impl "flash" runs `ops.flash_attention` wherever the reference's
     flash branch does, whenever K/V come from x or the cache (kv_x is
     None): self-attention over the whole cache with the cache's
@@ -179,6 +185,11 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     per_slot = isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
     if per_slot:
         idx_vec = cache_index.to(device=x.device, dtype=torch.int32)
+    elif isinstance(cache_index, torch.Tensor) and Sq == 1:
+        # a scalar index tensor, read without a host sync (the meta device
+        # of the dry-run has no values)
+        idx_vec = cache_index.to(device=x.device,
+                                 dtype=torch.int32).reshape(()).expand(B)
     elif cache_index is not None:
         idx_vec = torch.full((B,), int(cache_index), dtype=torch.int32,
                              device=x.device)
@@ -228,6 +239,9 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = (ck, cv)
 
     group = H // KVh
+    q = _constrain(q, "attn_act")
+    k = _constrain(k, "attn_act")
+    v = _constrain(v, "attn_act")
     if cfg.attn_impl == "flash" and kv_x is None:
         off = q_offset if isinstance(q_offset, torch.Tensor) else None
         att = ops.flash_attention(
@@ -235,12 +249,20 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             causal=causal and not static_kv, window=window,
             q_offset=None if off is None else off.contiguous())
         out = att.transpose(1, 2).reshape(B, Sq, H * hd)
-        return out @ p["wo"], new_cache
-    if cfg.attn_impl not in ("einsum", "flash"):
+        return _constrain(out, "attn_out") @ p["wo"], new_cache
+    if cfg.attn_impl == "flash_stub" and kv_x is None:
+        kk = k.mean(1, keepdim=True).repeat_interleave(group, dim=2)
+        vv = v.mean(1, keepdim=True).repeat_interleave(group, dim=2)
+        out = (q + kk + vv).reshape(B, Sq, H * hd)
+        return _constrain(out, "attn_out") @ p["wo"], new_cache
+    if cfg.attn_impl not in ("einsum", "flash", "flash_stub"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
     qh = q.reshape(B, Sq, KVh, group, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qh, k) * (hd ** -0.5)
+    decode = kv_cache is not None and cache_index is not None and Sq == 1
+    scores = _constrain(scores,
+                        "attn_scores_decode" if decode else "attn_scores")
     Sk = k.shape[1]
     bias = _mask_bias(Sq, Sk, q_offset, causal and not cross, window,
                       scores.dtype, x.device)
@@ -251,7 +273,10 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         bias = bias + torch.where(valid, 0.0, -1e30).to(bias.dtype)
     scores = scores + bias
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    probs = _constrain(probs,
+                       "attn_scores_decode" if decode else "attn_scores")
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(B, Sq, H * hd)
+    out = _constrain(out, "attn_out")
     return out @ p["wo"], new_cache
 
 
@@ -340,10 +365,11 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dispatch = torch.full((E * C + 1,), N, dtype=torch.long, device=x.device)
     dispatch[slot] = token_of
     xf_pad = torch.cat([xf, xf.new_zeros(1, D)], dim=0)
-    xe = xf_pad[dispatch[:E * C]].reshape(E, C, D)
+    xe = _constrain(xf_pad[dispatch[:E * C]].reshape(E, C, D),
+                    "moe_dispatch")
 
     h = F.silu(torch.bmm(xe, p["w1"])) * torch.bmm(xe, p["w3"])
-    ye = torch.bmm(h, p["w2"])                             # (E, C, D)
+    ye = _constrain(torch.bmm(h, p["w2"]), "moe_dispatch")  # (E, C, D)
 
     ypad = torch.cat([ye.reshape(E * C, D), ye.new_zeros(1, D)], dim=0)
     contrib = ypad[slot] * gates.reshape(-1)[:, None].to(ye.dtype)

@@ -35,6 +35,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed.ctx import (  # noqa: F401 (re-export)
+    activation_sharding, constrain as _constrain)
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models.common import (ModelConfig, ParamDef, init_params,
@@ -137,15 +139,11 @@ def _from_reference(defs: Any, tree: Any, device, path: str = "") -> Any:
 
 class LM:
     """The LM on one device (`device="cuda"` by default; "cpu" runs
-    attention through the plain `attention_ref`)."""
+    attention through the plain `attention_ref`; "meta" holds shapes only,
+    for the dry-run, with attn_impl "einsum" or "flash_stub")."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.attn_impl == "flash_stub":
-            raise NotImplementedError(
-                "attn_impl='flash_stub' is the reference's dry-run stand-in; "
-                "it waits for the launch and distributed slice (ROADMAP.md "
-                "Queue 1 item 11)")
-        if cfg.attn_impl not in ("einsum", "flash"):
+        if cfg.attn_impl not in ("einsum", "flash", "flash_stub"):
             raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
         if cfg.pos_embed not in ("rope", "learned", "none"):
             raise ValueError(f"unknown pos_embed {cfg.pos_embed!r}")
@@ -331,7 +329,7 @@ class LM:
             patches = torch.as_tensor(batch["patches"], device=self.device)
             pe = patches.to(x.dtype) @ params["frontend"]
             x = torch.cat([pe, x], dim=1)
-        return x
+        return _constrain(x, "activations")
 
     def _head(self, params: dict, x) -> torch.Tensor:
         cfg = self.cfg

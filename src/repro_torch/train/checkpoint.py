@@ -21,8 +21,12 @@
     checkpoint, so a crash mid-write never corrupts the latest commit; the
     last 3 commits are kept.
 
-Restoring onto a mesh (the reference's `shardings=`) waits for the
-distributed slice (ROADMAP.md Queue 1 item 11).
+`restore(..., shardings=)` is the reference's elastic restore: each leaf
+given a `NamedSharding` lands on its mesh's device as a DTensor over the
+mesh's `DeviceMesh`, its placements those of the spec, so a checkpoint
+written on one topology restores onto whatever mesh the restarted job has.
+A spec that would split a leaf across devices raises: this process holds
+each leaf whole.
 """
 from __future__ import annotations
 
@@ -177,22 +181,44 @@ def _load_leaf(d: Path, entry: dict) -> torch.Tensor:
     return torch.from_numpy(out)
 
 
+def _place(key: str, t: torch.Tensor, sharding, meshes: dict):
+    """Leaf `key` as a DTensor over its sharding's mesh, placed by its
+    spec; the mesh's DeviceMesh is made once a restore."""
+    from torch.distributed.tensor import DTensor
+    mesh, spec = sharding.mesh, sharding.spec
+    if len(spec) > t.dim():
+        raise ValueError(f"{key}: spec {spec} has more entries than the "
+                         f"leaf's {t.dim()} dimensions")
+    ways = mesh.split(spec)
+    if ways > 1 or not mesh.devices:
+        raise ValueError(f"{key}: spec {spec} on mesh {mesh.shape} would "
+                         f"split the leaf {ways} ways across devices this "
+                         f"process does not hold")
+    if mesh not in meshes:
+        meshes[mesh] = mesh.device_mesh()
+    return DTensor.from_local(t.to(mesh.devices[0]), meshes[mesh],
+                              mesh.placements(spec), run_check=False)
+
+
 def restore(ckpt_dir: str | Path, step: int, like: Any,
             shardings: Any | None = None) -> tuple[Any, dict]:
     """Restore into the structure of `like` (nested dicts, lists, tuples
-    and NamedTuples of tensors): each leaf lands on the device and in the dtype of its `like`
-    leaf.  Returns (tree, extra_state)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (shardings=) waits for the distributed "
-            "slice (ROADMAP.md Queue 1 item 11)")
+    and NamedTuples of tensors): each leaf lands on the device and in the
+    dtype of its `like` leaf, or, where `shardings` (a tree of the port's
+    `NamedSharding`, complete or partial) gives it one, on that sharding's
+    mesh.  Returns (tree, extra_state)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     flat_like = _flatten(like)
-    rebuilt = {}
+    flat_shard = _flatten(shardings) if shardings is not None else {}
+    rebuilt, meshes = {}, {}
     for key, want in flat_like.items():
         want = torch.as_tensor(want)
-        rebuilt[key] = _load_leaf(d, manifest["leaves"][key]).to(
-            want.device, want.dtype)
+        leaf = _load_leaf(d, manifest["leaves"][key])
+        if flat_shard.get(key) is not None:
+            rebuilt[key] = _place(key, leaf.to(dtype=want.dtype),
+                                  flat_shard[key], meshes)
+        else:
+            rebuilt[key] = leaf.to(want.device, want.dtype)
     return _unflatten(like, rebuilt), _decode_extra(
         manifest.get("extra", {}), d)

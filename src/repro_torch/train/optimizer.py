@@ -7,9 +7,8 @@ reference's, so `train.checkpoint` writes it under the reference's leaf
 names and either package restores the other's.  `update` works leaf by
 leaf, and writes the state's tensors and the params in place (the
 reference's trainer donates both to its jitted step) and returns them.
-The ZeRO-1 placement helpers (`zero1_pspec`, `*_state_pspecs`,
-`abstract_state`) wait for the distributed slice (ROADMAP.md Queue 1 item
-11).
+The ZeRO-1 placement helpers (`zero1_pspec`, `*_state_pspecs`) and
+`abstract_state` (the state on the meta device) serve the dry-run.
 """
 from __future__ import annotations
 
@@ -17,6 +16,8 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.launch.mesh import Mesh, P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,3 +200,85 @@ def update(grads, state, params, cfg: OptimizerConfig, lr):
     the state's tensors are updated in place."""
     fn = adamw_update if cfg.name == "adamw" else adafactor_update
     return fn(grads, state, params, cfg, lr)
+
+
+# --------------------------------------------------------------------------
+# ZeRO-1: the optimizer state sharded over the data axis
+# --------------------------------------------------------------------------
+def zero1_pspec(param_spec: P, shape: tuple, mesh: Mesh,
+                axis: str = "data") -> P:
+    """Place `axis` on the first replicated dim divisible by its size;
+    leaves the param's own model-parallel dims untouched."""
+    n = mesh.shape[axis]
+    spec = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    used = {a for s in spec if s for a in ((s,) if isinstance(s, str) else s)}
+    if axis in used:
+        return P(*spec)
+    for i, (s, dim) in enumerate(zip(spec, shape)):
+        if s is None and dim % n == 0 and dim >= n:
+            spec[i] = axis
+            return P(*spec)
+    return P(*spec)
+
+
+def _map_specs(fn, specs, shapes):
+    """fn(spec, shape) over a params-shaped tree of specs and one of shapes
+    (nested dicts and lists; a spec and a shape are leaves)."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, shapes[k]) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v, s) for v, s in zip(specs, shapes)]
+    return fn(specs, tuple(shapes))
+
+
+def adamw_state_pspecs(params_shapes, params_pspecs, mesh, zero1=True):
+    def z(spec, shape):
+        return zero1_pspec(spec, shape, mesh) if zero1 else spec
+    like = _map_specs(z, params_pspecs, params_shapes)
+    return AdamWState(step=P(), m=like, v=like, master=like)
+
+
+def adafactor_state_pspecs(params_shapes, params_pspecs, mesh, zero1=True,
+                           factored_min_dim=128):
+    def z(spec, shape):
+        return zero1_pspec(spec, shape, mesh) if zero1 else spec
+
+    def row(spec, shape):
+        if _factored(shape, factored_min_dim):
+            return P(*list(spec)[:len(shape) - 1])
+        return P()
+
+    def col(spec, shape):
+        if _factored(shape, factored_min_dim):
+            s = list(spec)
+            return P(*(s[:len(shape) - 2] + s[len(shape) - 1:len(shape)]))
+        return P()
+
+    def full(spec, shape):
+        return z(spec, shape) if not _factored(shape, factored_min_dim) \
+            else P()
+
+    return AdafactorState(
+        step=P(),
+        vr=_map_specs(row, params_pspecs, params_shapes),
+        vc=_map_specs(col, params_pspecs, params_shapes),
+        v=_map_specs(full, params_pspecs, params_shapes),
+        master=_map_specs(z, params_pspecs, params_shapes),
+    )
+
+
+def opt_state_pspecs(name: str, params_shapes, params_pspecs, mesh,
+                     zero1: bool = True):
+    if name == "adamw":
+        return adamw_state_pspecs(params_shapes, params_pspecs, mesh, zero1)
+    return adafactor_state_pspecs(params_shapes, params_pspecs, mesh, zero1)
+
+
+def abstract_state(name: str, params_abstract, cfg: OptimizerConfig):
+    """The optimizer state of params on the meta device (`init` over meta
+    tensors of the params' shapes and dtypes): nothing is allocated."""
+    def meta(p):
+        p = getattr(p, "value", p)           # a Placed param or a tensor
+        return torch.empty(p.shape, dtype=p.dtype, device="meta")
+    return init(tree_map(meta, params_abstract),
+                dataclasses.replace(cfg, name=name))

@@ -113,10 +113,26 @@ def test_run_with_restarts_reaches_target(tmp_path):
     assert calls["made"] == 2                 # initial + one restart
 
 
-def test_restore_onto_a_mesh_is_refused(tmp_path):
-    ckpt.save(tmp_path, 1, _tree())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ckpt.restore(tmp_path, 1, _tree(), shardings={"layer": None})
+def test_restore_onto_a_mesh_places_the_leaves(tmp_path):
+    """`shardings=` (ROADMAP.md Queue 1 item 11) places a leaf on the host
+    mesh as a DTensor; a None sharding restores its leaf as without."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import NamedSharding, P, make_host_mesh
+    tree = _tree()
+    ckpt.save(tmp_path, 1, tree)
+    try:
+        got, _ = ckpt.restore(tmp_path, 1, tree, shardings={
+            "layer": None,
+            "step": NamedSharding(make_host_mesh("cpu"), P())})
+        assert isinstance(got["step"], DTensor)
+        assert torch.equal(got["step"].to_local(), tree["step"])
+        for k, v in tree["layer"].items():
+            assert not isinstance(got["layer"][k], DTensor)
+            assert torch.equal(got["layer"][k], v)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_restore_takes_the_like_leaf_dtype(tmp_path):

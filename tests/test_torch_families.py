@@ -35,9 +35,6 @@ NEW = ["llama4_maverick_400b_a17b", "arctic_480b", "recurrentgemma_2b",
 #: at a lossless capacity factor
 EXTRA = {"llama4_maverick_400b_a17b": {"moe_capacity_factor": 100.0},
          "arctic_480b": {"moe_capacity_factor": 100.0}}
-#: ModelConfig fields of the reference that the port leaves to the launch
-#: slice (ROADMAP.md Queue 1 item 11)
-NOT_PORTED = ("moe_2d_dispatch",)
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
@@ -84,14 +81,12 @@ def _t(batch):
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_config_matches_reference(arch):
     """configs.get returns all ten configs, full and reduced, equal to the
-    reference's field for field (dtypes as their torch twins), but the
-    launch slice's field."""
+    reference's field for field (dtypes as their torch twins), the launch
+    slice's `moe_2d_dispatch` included."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     for reduced in (False, True):
         want = dataclasses.asdict(jconfigs.get(arch, reduced=reduced))
         got = dataclasses.asdict(tconfigs.get(arch, reduced=reduced))
-        for name in NOT_PORTED:
-            want.pop(name)
         for name in ("param_dtype", "compute_dtype"):
             want[name] = DTYPES[want[name]]
         assert got == want

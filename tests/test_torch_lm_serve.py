@@ -351,10 +351,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ServeEngine(model, None, EngineConfig())
 
 
-def test_family_configs_build_and_flash_stub_raises():
+def test_family_configs_build_and_flash_stub_runs():
     """The six other configs and an MoE config of its own build (ROADMAP.md
-    Queue 1 item 10's families are ported); attn_impl="flash_stub" still
-    raises naming item 11."""
+    Queue 1 item 10's families are ported); attn_impl="flash_stub", the
+    dry-run's stand-in (item 11), builds and gives finite logits."""
     for arch in ("arctic_480b", "llama4_maverick_400b_a17b", "mamba2_1_3b",
                  "recurrentgemma_2b", "whisper_small", "internvl2_1b"):
         cfg = tconfigs.get(arch)
@@ -364,9 +364,13 @@ def test_family_configs_build_and_flash_stub_raises():
                       num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64,
                       moe_experts=4, moe_interleave=2)
     assert LM(moe, device="cpu").plan == [(("attn_dense", "attn_moe"), 1)]
-    cfg = tconfigs.get("qwen2_1_5b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        LM(dataclasses.replace(cfg, attn_impl="flash_stub"), device="cpu")
+    cfg = dataclasses.replace(tconfigs.get("qwen2_1_5b", reduced=True),
+                              attn_impl="flash_stub")
+    stub = LM(cfg, device="cpu")
+    logits = stub.forward(stub.init(torch.Generator().manual_seed(0)),
+                          {"tokens": torch.zeros((2, 5), dtype=torch.int32)})
+    assert logits.shape == (2, 5, cfg.padded_vocab)
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
     (tier,) = DataPlaneSpec.preset("serve-kv").build_stack(slots=3,
                                                            bytes_per_slot=10)
     assert isinstance(tier, KVSlotTier) and tier.capacity_bytes == 30

@@ -111,12 +111,12 @@ def test_three_sgd_steps_match_reference():
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_ported_options_build_and_distributed_raises():
+def test_ported_options_build_and_distributed_options_run():
     """The host planes, merged windows, the topology plane, the sharded
-    and cluster planes, the LADIES sampler, the GNN-serving presets and the
-    LM families and configs (ROADMAP item 10) are ported; the distributed
-    options (item 11) still raise, naming their item, and an unknown
-    sampler raises ValueError when the config is built."""
+    and cluster planes, the LADIES sampler, the GNN-serving presets, the
+    LM families and configs (ROADMAP item 10) and the distributed options
+    (item 11: the `flash_stub` attention, the `moe_2d_dispatch` field) are
+    ported; an unknown attention or sampler raises ValueError."""
     for name in ("gids", "gids-async", "bam", "mmap", "pinned-host",
                  "gids-merged", "gids-merged-async", "gids-topo",
                  "gids-topo-merged", "gids-sharded", "gids-merged-sharded",
@@ -128,9 +128,11 @@ def test_ported_options_build_and_distributed_raises():
     assert LM(configs.get("mamba2_1_3b"), device="cpu").plan == [
         (("ssm",), 48)]
     cfg = configs.get("qwen2_1_5b", reduced=True)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 11"):
-        LM(dataclasses.replace(cfg, attn_impl="flash_stub"), device="cpu")
+    assert LM(dataclasses.replace(cfg, attn_impl="flash_stub",
+                                  moe_2d_dispatch=True),
+              device="cpu").cfg.attn_impl == "flash_stub"
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        LM(dataclasses.replace(cfg, attn_impl="splash"), device="cpu")
     assert LoaderConfig().data_plane == "gids"
     spec = DataPlaneSpec.preset("gids-device", merge_execute=True,
                                 topology=True)
@@ -174,14 +176,17 @@ def test_port_imports_no_jax():
                  "serve.workload", "serve.admission", "serve.gnn_engine",
                  "core.tiers", "core.dataplane", "graph.csr",
                  "models.recurrent", "configs.whisper_small",
-                 "configs.recurrentgemma_2b"):
+                 "configs.recurrentgemma_2b", "distributed.ctx",
+                 "distributed.compression", "launch.mesh", "launch.specs",
+                 "launch.roofline", "launch.dryrun"):
         assert f"repro_torch.{name}\n" in out.stdout
     pattern = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)\b)",
                          re.M)
     sources = [*(ROOT / "src" / "repro_torch").rglob("*.py"),
                ROOT / "chip_smoke.py",
                ROOT / "examples" / "train_gnn_igb_torch.py",
-               ROOT / "examples" / "serve_decode_torch.py"]
+               ROOT / "examples" / "serve_decode_torch.py",
+               ROOT / "examples" / "quickstart_torch.py"]
     for path in sources:
         hits = [m.group(0) for m in pattern.finditer(path.read_text())]
         assert not hits, (path, hits)
