@@ -41,8 +41,38 @@
 //   rows pass 8), lane c scores kv rows c and c + 32 in f32, the row max
 //   and sum reduce with shuffles, and p v reads p from shared memory.
 //   Each block writes f32 partials (m, l, unnormalised acc) to scratch
-//   from the launcher; `flash_combine_kernel`, a second launch with its own
-//   count, merges them by log-sum-exp, one block per packed row.
+//   from the launcher, and the merge runs in the same launch: each block
+//   (a chunk past the band too) fences its partials and counts itself in
+//   its (b, kv head)'s arrival counter with one atomicAdd; the block that
+//   arrives last merges every split's partials by log-sum-exp into o and
+//   sets the counter back to 0 (the launcher zeroes the counters once, not
+//   per call), the others exit.  No block waits for another, so a grid of
+//   any size runs.  What bounds a decode step now is the split phase (its
+//   K/V bytes and one round trip per 64-row tile) plus that merge, which
+//   one SM does per (b, kv head) while other blocks still run beside it:
+//   the bytes one SM keeps in flight bound it, so it reads only the splits
+//   whose chunk meets the band (2-30 of 32 at offsets 64-1900), through L2
+//   (__ldcg: the ~100 KB of a (b, kv head) at the serving shape are still
+//   in the 50 MB L2) in chunks whose loads are all in flight, each warp's
+//   (m, l) at once, with every lane busy (`merge_pair`).  Measured on the
+//   H100 (chip_smoke.py --flash-decode-variants) it is near the two-launch
+//   path at 32 splits and behind it at 64, ahead at 1 and 8 splits, and a
+//   call takes about a third less host time to enqueue.  It replaces a
+//   second kernel, `flash_combine_kernel`, which started only after the
+//   whole split grid drained, cost a host dispatch of its own and read the
+//   partials back in two dependent phases; that kernel stays, with the
+//   merge compiled out of the split kernel (`kMerge`), as the yardstick the
+//   fused merge equals bit for bit: both call `merge_load`,
+//   `merge_weights` and `merge_columns`, which sum in split order, never
+//   arrival order.
+//   Weighed and not taken: thread-block clusters with a reduction through
+//   distributed shared memory (a cluster holds at most 16 blocks, 8
+//   portable, which would cap the serving shape at 16 splits, 2 blocks an
+//   SM, measured slower above); programmatic dependent launch (hides the
+//   launch gap but keeps the second dispatch and the round trip through
+//   device memory).  Tried and dropped: staging a round of partials in
+//   shared memory by cp.async or a TMA bulk copy (as slow or slower: the
+//   rounds serialise and the merge competes with its SM's other blocks).
 // * Tensor cores (bf16, Sq * GROUP > 16: prefill).  Bound by operations
 //   (4 hd per visible pair per head at 989 TFLOP/s).  S = Q K^T and
 //   O += P V run as mma.sync.m16n8k16 bf16 with f32 accumulators,
@@ -364,7 +394,172 @@ struct Split {
   int splits, chunk;
   float* ml;                          // (B, KV, splits, 16, 2): m, l
   float* acc;                         // (B, KV, splits, 16, HD)
+  int* arrivals;                      // (B * KV,) blocks arrived; merge only
 };
+
+// ---- the log-sum-exp merge of split partials --------------------------------
+//
+// out[b, h, i] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the
+// splits s with l_s > 0, M their largest m; 0 where no split saw a key.  The
+// split kernel's last block and flash_combine_kernel both merge through these
+// two functions, so their outputs are equal bit for bit.  A split outside
+// [s_lo, s_hi) is not read and counts as neutral (m NEG_INF, l 0, acc 0): it
+// adds an exact 0 at its own place in the sums below, so leaving a dead split
+// out changes no bit.
+
+// Lane `lane`'s two splits of packed row r, lane and lane + 32 (a fixed
+// tree over the split index whatever the range): (m, l) through L2 for the
+// splits in [s_lo, s_hi), the neutral (NEG_INF, 0) for the others.
+__device__ __forceinline__ void merge_load(const float* ml, int64_t cell,
+                                           int r, int s_lo, int s_hi,
+                                           int lane, float2* x) {
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int s = lane + 32 * h2;
+    x[h2] = s >= s_lo && s < s_hi
+                ? __ldcg(reinterpret_cast<const float2*>(
+                      ml + ((cell + s) * kSplitRows + r) * 2))
+                : make_float2(kNegInf, 0.0f);
+  }
+}
+
+// One warp, from merge_load's (m, l): the weights e^(m_s - M) into w[s] for
+// the splits in [s_lo, s_hi); returns 1 / max(L, 1e-30) on every lane (a
+// butterfly leaves every lane the same sum).
+__device__ __forceinline__ float merge_weights(const float2* x, int s_lo,
+                                               int s_hi, float* w, int lane) {
+  float M = kNegInf;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    if (x[h2].y > 0.0f) M = fmaxf(M, x[h2].x);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, d));
+  }
+  float L = 0.0f;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int s = lane + 32 * h2;
+    const float e = x[h2].y > 0.0f ? expf(x[h2].x - M) : 0.0f;
+    if (s >= s_lo && s < s_hi) w[s] = e;
+    L = fmaf(e, x[h2].y, L);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) L += __shfl_xor_sync(0xffffffffu, L, d);
+  __syncwarp();                       // w is read by every lane
+  return 1.0f / fmaxf(L, 1e-30f);
+}
+
+// sum[j] = the fmaf chain, in split order from 0, of w[s] * src[s * stride
+// + j] over the n splits from the one `src` and `w` point at, read through
+// L2 (__ldcg: never a stale L1) in chunks of U splits whose loads are all
+// in flight before the chunk's fmafs (a clamped load past n is issued and
+// its term skipped): V = 1 (flash_combine_kernel, a column a thread) or 4
+// (the split kernel's merge, 16 bytes a lane)
+template <int V, int U>
+__device__ __forceinline__ void merge_columns(const float* src,
+                                              int64_t stride, int n,
+                                              const float* w, float* sum) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) sum[j] = 0.0f;
+  for (int s0 = 0; s0 < n; s0 += U) {
+    float a[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float* x = src + min(s0 + u, n - 1) * stride;
+      if constexpr (V == 4) {
+        const float4 x4 = __ldcg(reinterpret_cast<const float4*>(x));
+        a[u][0] = x4.x;
+        a[u][1] = x4.y;
+        a[u][2] = x4.z;
+        a[u][3] = x4.w;
+      } else {
+        a[u][0] = __ldcg(x);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s0 + u < n) {
+        const float ws = w[s0 + u];
+#pragma unroll
+        for (int j = 0; j < V; ++j) sum[j] = fmaf(ws, a[u][j], sum[j]);
+      }
+    }
+  }
+}
+
+// The merge of one (b, kv head)'s partials into p.o by the split kernel's
+// last block to arrive, after its fence.  Only splits whose chunk meets
+// the band saw a key.  Rows go round-robin over the warps, lanes over hd
+// in 16-byte words; below hd 128 a warp takes 32 / (hd / 4) rows at once
+// (hd 64: two) so that no lane idles.  Each warp asks for all its rows'
+// (m, l) at once, turns them into weights (row r's in w + 64 r), then sums
+// its columns.  The offset and band are read again here (the offset
+// through __ldcg, so that the compiler does not keep the kernel's first
+// read live through the kernel's loop).
+template <typename T, int HD, int RW>
+__device__ __forceinline__ void merge_pair(const Params& p, const Split& sp,
+                                        float* w, float* inv, int b,
+                                        int kvh) {
+  constexpr int kRows = 4 * RW;
+  constexpr int kLanes = HD >= 128 ? 32 : HD / 4;     // lanes of one row
+  constexpr int kPack = 32 % kLanes == 0 ? 32 / kLanes : 1;
+  constexpr int kPerWarp = (kRows + 4 * kPack - 1) / (4 * kPack) * kPack;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = p.H / p.KV, rows = p.Sq * group;
+  const int off = p.q_offset != nullptr ? __ldcg(p.q_offset + b) : 0;
+  int band_lo, band_hi;
+  kv_band(p, off, off + p.Sq - 1, &band_lo, &band_hi);
+  const int s_lo = band_lo < band_hi ? band_lo / sp.chunk : 0;
+  const int s_hi = band_lo < band_hi ? (band_hi + sp.chunk - 1) / sp.chunk
+                                     : 0;
+  const int64_t cell0 = (static_cast<int64_t>(b) * p.KV + kvh) * sp.splits;
+  float2 x[kPerWarp][2];
+#pragma unroll
+  for (int j = 0; j < kPerWarp; ++j) {
+    const int r = (j / kPack) * 4 * kPack + warp * kPack + j % kPack;
+    if (r < rows) merge_load(sp.ml, cell0, r, s_lo, s_hi, lane, x[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kPerWarp; ++j) {
+    const int r = (j / kPack) * 4 * kPack + warp * kPack + j % kPack;
+    if (r < rows) {
+      const float v = merge_weights(x[j], s_lo, s_hi, w + r * kMaxSplits,
+                                    lane);
+      if (lane == 0) inv[r] = v;
+    }
+  }
+  __syncwarp();                       // inv of the warp's rows
+  T* o = static_cast<T*>(p.o);
+  const int sub = lane / kLanes, col = 4 * (lane % kLanes);
+  for (int r0 = warp * kPack; r0 < rows; r0 += 4 * kPack) {
+    const int r = r0 + sub;
+    if (sub >= kPack || r >= rows) continue;
+    const int i = r / group, h = kvh * group + r % group;
+    T* dst = o + b * p.os[0] + h * p.os[1] + i * p.os[2];
+    for (int d = col; d < HD; d += 4 * kLanes) {
+      float sum[4];
+      merge_columns<4, 8>(
+          sp.acc + ((cell0 + s_lo) * kSplitRows + r) * HD + d,
+          static_cast<int64_t>(kSplitRows) * HD, s_hi - s_lo,
+          w + r * kMaxSplits + s_lo, sum);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) store(dst + d + j, sum[j] * inv[r]);
+    }
+  }
+}
+
+// merge_pair out of line, for the f32 hd-256 kernels, whose loop is at the
+// 255-register cap: inlined, the merge made the RW-4 loop spill more than
+// it did without it; out of line it spills less, for a slower merge on a
+// path that serves nothing (the f32 gates)
+template <typename T, int HD, int RW>
+__device__ __noinline__ void merge_pair_call(const Params& p, const Split& sp,
+                                             float* w, float* inv, int b,
+                                             int kvh) {
+  merge_pair<T, HD, RW>(p, sp, w, inv, b, kvh);
+}
 
 constexpr int kSplitPLD = kBK + 4;    // p rows, 16-byte aligned
 
@@ -411,8 +606,10 @@ __device__ __forceinline__ void copy_rows_async(T* dst, const T* head,
 }
 
 // RW rows per warp: 2 when the group's rows fit 8 (every warp then holds
-// work at GROUP 4 or 6), else 4
-template <typename T, int HD, int RW>
+// work at GROUP 4 or 6), else 4.  kMerge: the last block of each (b, kv
+// head) to arrive merges the partials into p.o (without it, partials only,
+// for flash_combine_kernel)
+template <typename T, int HD, int RW, bool kMerge>
 __global__ void __launch_bounds__(kSplitThreads)
     flash_split_kernel(const Params p, const Split sp) {
   constexpr int kLD = HD + 16 / static_cast<int>(sizeof(T));
@@ -582,13 +779,32 @@ __global__ void __launch_bounds__(kSplitThreads)
       if (d < HD) sp.acc[row * HD + d] = acc[j][dn];
     }
   }
+  if constexpr (kMerge) {
+    // every block arrives; the last of this (b, kv head) merges
+    __shared__ int last;
+    __shared__ float inv[kSplitRows];
+    const int pair = b * p.KV + kvh;
+    __threadfence();                  // this thread's partials are visible
+    __syncthreads();                  // before the block counts itself
+    if (threadIdx.x == 0) {
+      last = atomicAdd(sp.arrivals + pair, 1) == sp.splits - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();                  // every block's partials, then reads
+    if constexpr (sizeof(T) == 4 && HD == 256) {
+      merge_pair_call<T, HD, RW>(p, sp, Ps, inv, b, kvh);
+    } else {
+      merge_pair<T, HD, RW>(p, sp, Ps, inv, b, kvh);
+    }
+    if (threadIdx.x == 0) sp.arrivals[pair] = 0;  // for the next launch
+  }
 }
 
-// out[b, h, i] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the
-// splits s with l_s > 0, M their largest m; 0 where no split saw a key.
-// One block per packed row (r, kv head, b): warp 0 turns the splits' (m, l)
-// into weights, then thread d sums its column over the splits, whose loads
-// are independent of each other.
+// The merge as a launch of its own, over partials that the split kernel
+// wrote with kMerge off: one block per packed row (r, kv head, b), warp 0
+// turns the splits' (m, l) into weights, then thread d sums its column over
+// all the splits.
 template <typename T>
 __global__ void __launch_bounds__(kSplitThreads)
     flash_combine_kernel(const float* __restrict__ ml,
@@ -602,40 +818,18 @@ __global__ void __launch_bounds__(kSplitThreads)
   const int64_t cell = (static_cast<int64_t>(b) * KV + kvh) * splits;
   const int t = threadIdx.x;
   if (t < 32) {
-    float mv[2], lv[2], M = kNegInf;
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int s = t + 32 * h2;
-      const float* x = ml + ((cell + s) * kSplitRows + r) * 2;
-      mv[h2] = s < splits ? x[0] : kNegInf;
-      lv[h2] = s < splits ? x[1] : 0.0f;
-      if (lv[h2] > 0.0f) M = fmaxf(M, mv[h2]);
-    }
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, d));
-    }
-    float L = 0.0f;
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int s = t + 32 * h2;
-      const float e = lv[h2] > 0.0f ? expf(mv[h2] - M) : 0.0f;
-      if (s < splits) w[s] = e;
-      L += e * lv[h2];
-    }
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) L += __shfl_xor_sync(0xffffffffu, L, d);
-    if (t == 0) inv = 1.0f / fmaxf(L, 1e-30f);
+    float2 x[2];
+    merge_load(ml, cell, r, 0, splits, t, x);
+    const float v = merge_weights(x, 0, splits, w, t);
+    if (t == 0) inv = v;
   }
   __syncthreads();
   const int i = r / group, h = kvh * group + r % group;
   for (int d = t; d < hd; d += kSplitThreads) {
-    float sum = 0.0f;
-#pragma unroll 32
-    for (int s = 0; s < splits; ++s) {  // loads batched, not chained
-      // a split that saw no key wrote acc = 0 and weighs 0
-      sum = fmaf(w[s], acc[((cell + s) * kSplitRows + r) * hd + d], sum);
-    }
+    float sum;
+    merge_columns<1, 32>(acc + (cell * kSplitRows + r) * hd + d,
+                         static_cast<int64_t>(kSplitRows) * hd, splits, w,
+                         &sum);
     store(o + b * os0 + h * os1 + i * os2 + d, sum * inv);
   }
 }
@@ -1000,22 +1194,30 @@ int launch_tiles(const Params& p, int B, int dtype, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int launch_split(const Params& p, const Split& sp, int B,
-                 cudaStream_t stream) {
+template <typename T, int HD, bool kMerge>
+int launch_split_as(const Params& p, const Split& sp, int B,
+                    cudaStream_t stream) {
   const dim3 grid(sp.splits, p.KV, B);
   if (p.Sq * (p.H / p.KV) <= 8) {
     constexpr size_t smem = split_smem_bytes<T, HD, 2>();
-    auto kernel = flash_split_kernel<T, HD, 2>;
+    auto kernel = flash_split_kernel<T, HD, 2, kMerge>;
     if (const int err = allow_smem(kernel, smem)) return err;
     kernel<<<grid, kSplitThreads, smem, stream>>>(p, sp);
   } else {
     constexpr size_t smem = split_smem_bytes<T, HD, 4>();
-    auto kernel = flash_split_kernel<T, HD, 4>;
+    auto kernel = flash_split_kernel<T, HD, 4, kMerge>;
     if (const int err = allow_smem(kernel, smem)) return err;
     kernel<<<grid, kSplitThreads, smem, stream>>>(p, sp);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_split(const Params& p, const Split& sp, int B,
+                 cudaStream_t stream) {
+  return sp.arrivals != nullptr
+             ? launch_split_as<T, HD, true>(p, sp, B, stream)
+             : launch_split_as<T, HD, false>(p, sp, B, stream);
 }
 
 template <typename T>
@@ -1085,24 +1287,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// Split-KV partials for Sq * (H / KV) <= 16: grid (splits, KV, B), split s
-// covering kv rows [s * chunk, (s + 1) * chunk).  ml (B, KV, splits, 16, 2)
-// and acc (B, KV, splits, 16, hd) f32 are written for the rows < Sq * group;
-// o is not touched (flash_attention_combine writes it).  splits <= 64.
+// Split-KV for Sq * (H / KV) <= 16: grid (splits, KV, B), split s covering
+// kv rows [s * chunk, (s + 1) * chunk).  ml (B, KV, splits, 16, 2) and acc
+// (B, KV, splits, 16, hd) f32 are written for the rows < Sq * group.  With
+// arrivals ((B * KV,) int32, all 0 on entry and on return) the same launch
+// merges them into o through its strides; without it (null) o is not
+// touched and flash_attention_combine merges.  splits <= 64.
 extern "C" int flash_attention_split(const void* q, const void* k,
-                                     const void* v, const void* q_offset,
-                                     int dtype, int B, int H, int KV, int Sq,
-                                     int Sk, int hd, int causal, int window,
-                                     float scale, const long long* strides,
-                                     int splits, int chunk, void* ml,
-                                     void* acc, void* stream) {
+                                     const void* v, void* o,
+                                     const void* q_offset, int dtype, int B,
+                                     int H, int KV, int Sq, int Sk, int hd,
+                                     int causal, int window, float scale,
+                                     const long long* strides, int splits,
+                                     int chunk, void* ml, void* acc,
+                                     void* arrivals, void* stream) {
   if (Sq * (H / KV) > kSplitRows || splits < 1 || splits > kMaxSplits) {
     return -1;
   }
-  const Params p = make_params(q, k, v, nullptr, q_offset, H, KV, Sq, Sk,
-                               causal, window, scale, strides);
+  const Params p = make_params(q, k, v, o, q_offset, H, KV, Sq, Sk, causal,
+                               window, scale, strides);
   const Split sp{splits, chunk, static_cast<float*>(ml),
-                 static_cast<float*>(acc)};
+                 static_cast<float*>(acc), static_cast<int*>(arrivals)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return split_hd<float>(p, sp, B, hd, s);
   if (dtype == 1) return split_hd<__nv_bfloat16>(p, sp, B, hd, s);

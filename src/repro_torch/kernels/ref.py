@@ -150,21 +150,58 @@ def flash_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ml, acc
 
 
+def live_splits(q_offset: torch.Tensor, Sq: int, Sk: int, chunk: int,
+                splits: int, causal: bool = True,
+                window: int | None = None) -> torch.Tensor:
+    """(B, splits) bool: whether split s of sequence b holds a key some
+    query of b sees, as the kernels' `kv_band` decides it.  Queries
+    q_offset[b] .. q_offset[b] + Sq - 1 see keys [begin, end) with end =
+    min(Sk, q_offset[b] + Sq) under the causal mask (Sk without it) and
+    begin = max(0, q_offset[b] - window + 1) under a window (0 without
+    it); split s (rows [s * chunk, (s + 1) * chunk)) is live when it meets
+    that band.  A dead split holds the neutral partial, and the fused
+    kernel's merge does not read it."""
+    off = q_offset.long()
+    end = (off + Sq).clamp(max=Sk) if causal else torch.full_like(off, Sk)
+    begin = ((off - window + 1).clamp(min=0) if window is not None
+             else torch.zeros_like(off))
+    lo = torch.arange(splits, device=off.device) * chunk
+    return ((begin < end)[:, None] & (lo[None] < end[:, None])
+            & (lo[None] + chunk > begin[:, None]))
+
+
 def flash_combine_ref(ml: torch.Tensor, acc: torch.Tensor, H: int, Sq: int,
-                      dtype: torch.dtype) -> torch.Tensor:
+                      dtype: torch.dtype,
+                      live: torch.Tensor | None = None) -> torch.Tensor:
     """Log-sum-exp merge of split partials into (B, H, Sq, hd): out =
     sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the splits with
-    l_s > 0 (M their largest m), 0 where none saw a key."""
-    B, KV = ml.shape[:2]
+    l_s > 0 (M their largest m), 0 where none saw a key.  The sums run over
+    the splits in order, as the kernels' fmaf chains do.  With `live` (B,
+    splits) bool, as `live_splits` gives it, a dead split is not read: it
+    adds nothing where it would have added an exact 0, which is how the
+    fused kernel's merge skips it."""
+    B, KV, S = ml.shape[:3]
     hd = acc.shape[-1]
     group = H // KV
     rows = Sq * group
     m, l = ml[..., :rows, 0], ml[..., :rows, 1]          # (B, KV, S, rows)
-    live = l > 0
-    M = torch.where(live, m, NEG_INF).amax(dim=2, keepdim=True)
-    w = torch.where(live, torch.exp(m - M), 0.0)
-    L = (w * l).sum(dim=2)                                # (B, KV, rows)
-    o = (w[..., None] * acc[..., :rows, :]).sum(dim=2)
+    read = l > 0
+    if live is not None:
+        live = live.to(ml.device)
+        read &= live[:, None, :, None]
+    M = torch.where(read, m, NEG_INF).amax(dim=2, keepdim=True) if S else 0.0
+    w = torch.where(read, torch.exp(m - M), 0.0)
+    L = torch.zeros((B, KV, rows), dtype=torch.float32, device=ml.device)
+    o = torch.zeros((B, KV, rows, hd), dtype=torch.float32, device=ml.device)
+    for s in range(S):
+        L_s = L + w[:, :, s] * l[:, :, s]
+        o_s = o + w[:, :, s, :, None] * acc[:, :, s, :rows, :]
+        if live is None:
+            L, o = L_s, o_s
+        else:
+            keep = live[:, s, None, None]
+            L = torch.where(keep, L_s, L)
+            o = torch.where(keep[..., None], o_s, o)
     o = o * (1.0 / L.clamp_min(1e-30))[..., None]
     return (o.reshape(B, KV, Sq, group, hd).transpose(2, 3)
             .reshape(B, H, Sq, hd).to(dtype))

@@ -214,6 +214,7 @@ SPLIT_CASES = [(3, 12, 2, 1, 300, 32, None, (0, 150, 299)),
                (1, 4, 1, 2, 130, 64, None, (128,)),
                (2, 4, 2, 1, 64, 16, 4, (100, 10)),
                (2, 10, 1, 1, 300, 256, 48, (100, 290))]
+SPLIT_IDS = ["decode", "window_group4", "b1", "unseen", "hd256_window"]
 
 
 def _reference_at_offsets(q, k, v, offsets, window):
@@ -232,9 +233,7 @@ def _reference_at_offsets(q, k, v, offsets, window):
 
 
 @pytest.mark.parametrize("plan", ["launcher", "one_tile"])
-@pytest.mark.parametrize("case", SPLIT_CASES,
-                         ids=["decode", "window_group4", "b1", "unseen",
-                              "hd256_window"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=SPLIT_IDS)
 def test_split_and_combine_match_reference_oracle(case, plan):
     """The kernel's split-KV arithmetic in plain torch: partials (m, l,
     acc) per kv chunk with NEG_INF = -1e30, merged by log-sum-exp, against
@@ -265,6 +264,109 @@ def test_split_and_combine_match_reference_oracle(case, plan):
     assert bool((acc[empty] == 0).all())
     if plan == "one_tile" and window is not None and offsets[0] - window >= Sk:
         assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+def _split_inputs(case, seed):
+    B, H, KV, Sq, Sk, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd))]
+
+
+def _plan(plan, Sk, B, KV):
+    if plan == "launcher":
+        return tfa.split_plan(Sk, B, KV, sms=132)
+    return -(-Sk // tfa.SPLIT_TILE), tfa.SPLIT_TILE
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("plan", ["launcher", "one_tile"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=SPLIT_IDS)
+def test_live_splits_mirror_the_band_and_dead_splits_are_neutral(case, plan,
+                                                                 seed):
+    """ref.live_splits at random offsets (some past the cache) and random
+    windows: every split it calls dead holds exactly the neutral partial
+    (NEG_INF, 0, 0) in every row of ref.flash_split_ref, padding rows too,
+    and every split it calls live saw a key in some row, so the fused
+    kernel's merge, which reads only live splits, loses nothing."""
+    B, _, KV, Sq, Sk, hd = case[:6]
+    rng = np.random.default_rng(100 * seed + Sk + hd)
+    windows = [None, int(rng.integers(1, 2 * tfa.SPLIT_TILE)),
+               int(rng.integers(1, Sk + 1))]
+    q, k, v = _split_inputs(case, seed)
+    splits, chunk = _plan(plan, Sk, B, KV)
+    for window in windows:
+        off = torch.from_numpy(rng.integers(0, Sk + 16, B).astype(np.int32))
+        live = ref.live_splits(off, Sq, Sk, chunk, splits, True, window)
+        assert live.shape == (B, splits) and live.dtype == torch.bool
+        ml, acc = ref.flash_split_ref(q, k, v, splits, chunk, causal=True,
+                                      window=window, q_offset=off)
+        dead = ~live
+        assert bool((ml[..., 0].transpose(1, 2)[dead] == ref.NEG_INF).all())
+        assert bool((ml[..., 1].transpose(1, 2)[dead] == 0).all())
+        assert bool((acc.transpose(1, 2)[dead] == 0).all())
+        seen = (ml[..., 1] > 0).any(dim=(1, 3))              # (B, splits)
+        assert torch.equal(seen, live)
+
+
+@pytest.mark.parametrize("plan", ["launcher", "one_tile"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=SPLIT_IDS)
+def test_combine_over_live_splits_alone_equals_the_full_merge(case, plan):
+    """The fused kernel's merge reads only the live splits, in split order:
+    ref.flash_combine_ref given `live`, with the dead splits' scratch
+    overwritten by NaN, equals the merge over every split bit for bit (a
+    dead split adds an exact 0), and the JAX oracle within 1e-6."""
+    B, H, KV, Sq, Sk, hd, window, offsets = case
+    q, k, v = _split_inputs(case, Sk + hd)
+    splits, chunk = _plan(plan, Sk, B, KV)
+    off = torch.tensor(offsets, dtype=torch.int32)
+    ml, acc = ref.flash_split_ref(q, k, v, splits, chunk, causal=True,
+                                  window=window, q_offset=off)
+    live = ref.live_splits(off, Sq, Sk, chunk, splits, True, window)
+    full = ref.flash_combine_ref(ml, acc, H, Sq, torch.float32)
+    poisoned_ml, poisoned_acc = ml.clone(), acc.clone()
+    dead = (~live)[:, None, :]
+    poisoned_ml[dead.expand(B, KV, splits)] = float("nan")
+    poisoned_acc[dead.expand(B, KV, splits)] = float("nan")
+    alone = ref.flash_combine_ref(poisoned_ml, poisoned_acc, H, Sq,
+                                  torch.float32, live=live)
+    assert torch.equal(alone, full)
+    want = _reference_at_offsets(q.numpy(), k.numpy(), v.numpy(), offsets,
+                                 window)
+    np.testing.assert_allclose(alone.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_arrival_counters_are_zeroed_once_reused_and_grown(monkeypatch):
+    """The launcher's arrival counters: one int32 tensor per device, zeroed
+    by torch.zeros when made, handed out again as it stands (the kernel,
+    not the launcher, sets each counter back to 0), and replaced by a
+    larger zeroed one when B * KV outgrows it."""
+    monkeypatch.setattr(tfa, "_arrivals", {})
+    cpu = torch.device("cpu")
+    first = tfa._arrival_counters(cpu, 6)
+    assert first.dtype == torch.int32 and first.shape == (6,)
+    assert first.device == cpu and not bool(first.any())
+    first[3] = 5                      # a count left over: never re-zeroed
+    again = tfa._arrival_counters(cpu, 4)
+    assert again is first and int(again[3]) == 5
+    grown = tfa._arrival_counters(cpu, 16)
+    assert grown is not first and grown.shape == (16,)
+    assert not bool(grown.any())
+    assert tfa._arrival_counters(cpu, 16) is grown
+    assert tfa._arrivals == {cpu: grown}
+
+
+def test_split_decode_paths_refuse_cpu_tensors_and_count_no_launch():
+    """The private split-KV entry (the fused launch and the two-launch path
+    it replaced, for chip_smoke.py) launches on CUDA tensors or raises,
+    before it counts anything; it refuses a call that is not split-KV."""
+    q = torch.randn(1, 4, 1, 16)
+    k = torch.randn(1, 2, 64, 16)
+    before = dict(_build.LAUNCHES)
+    for merge in (True, False):
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa._flash_decode(q, k, k, merge=merge)
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("Sk", [1, 63, 64, 65, 300, 2048, 8192])
