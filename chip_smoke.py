@@ -34,8 +34,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    counter back at 0, also at one split (a 64-row cache) and over
    back-to-back calls of growing B x KV; flash_combine itself within
    1e-5 in f32 and 1e-2 in bf16).  cache_access runs uniform rounds at
-   B 8192 and 28000 and a round whose ids all hash into 4 sets, and
-   cache_bucket runs at its largest set count and refuses one more.
+   B 8192 and 28000 and a round whose ids all hash into 4 sets (CACHE_ROWS),
+   each with the host's time to enqueue one call; cache_bucket runs alone
+   at 20,000 sets (five windows of keys) and at B 200,000
+   (CACHE_BUCKET_ROWS) beside the launch floor (an empty launch under the
+   same timer), at its largest set count, and refuses one more.
    frontier_read runs one batch's two hops of sampled positions through
    real topology stores (and int64 words, all-cold and all-hot stores),
    with the whole store call's host time beside the kernel's, and a bound
@@ -302,7 +305,27 @@ times the fused split-KV decode beside the two-launch path it replaced
 turns on the same inputs at every split-KV row of phase 2, and gates the
 split-KV instances' register spills (SPLIT_SPILL_LIMIT).
 
-The script imports torch, numpy and the port (src/repro_torch) only.
+    python3 chip_smoke.py --cache-variants
+
+times cache_access (its walk launched early through programmatic dependent
+launch) and its one-launch cache_bucket beside copies built with the walk
+launched in plain stream order, with the match in every group of the
+placement pass, with 32-bit counters where the sort uses 16-bit ones,
+and with clusters of 1, 4 and 16 blocks (CACHE_VARIANTS), in turns at
+every CACHE_ROWS row, each exact against access_ref.
+
+    python3 chip_smoke.py --cache-ab [TREE]
+
+builds the kernels of TREE, a directory inside this checkout (default:
+the checkout itself; for example an earlier commit unpacked with `git
+archive` into a git-ignored directory), runs
+phase 2's cache rows and phase 3's path against that tree's package, and
+phase 3 again under `torch.profiler`: the device operations and the cache
+kernels' launches and device ms per step.  Run it on two trees in turns
+(A, B, B, A) in one call to compare them on one card.
+
+The script imports torch, numpy and the port (src/repro_torch, or
+TREE/src with --cache-ab) only.
 """
 from __future__ import annotations
 
@@ -828,6 +851,27 @@ def _hot_ids(torch, num_sets, hot_sets, n):
     return ids.to(torch.int32).cpu().numpy()
 
 
+#: cache_access's phase-2 rows: B 8192 (one batch of the first path),
+#: B 28000 (one merged window's unique ids on the second) and 4 hot sets
+CACHE_ROWS = (("uniform_8192", {}),
+              ("merged_window_28000", {"B": 28_000, "id_range": 100_000}),
+              ("hot_4_sets", {"hot_sets": 4}))
+
+
+def enqueue_us(torch, fn, setup=None, reps=20) -> float:
+    """Median host µs to enqueue one call of `fn` (no sync inside), with
+    the card idle before each call and `setup()` untimed."""
+    times = []
+    for _ in range(reps):
+        args = setup() if setup else ()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000,
                         hot_sets=None):
     """B requests into 2048 sets x 8 ways over three rounds that repeat ids
@@ -838,7 +882,8 @@ def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000,
     that do, with duplicates and 2 % -1 pads in every round): the serial
     walk of a hot set.  The bucketing pass (`cache_bucket`) is also held
     and timed on its own against `bucket_by_set_ref` on the card; its time
-    is part of cache_access's."""
+    is part of cache_access's.  Returns both kernels' summaries, the
+    access's with the host µs to enqueue one call."""
     from repro_torch.core import cache_device as cd
     lines, ways = 16384, 8
     num_sets = lines // ways
@@ -872,6 +917,7 @@ def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000,
     check(int(cpu.hits) > 0, "cache_access: the rounds never hit")
     ids_d, fc_d = ids_t.cuda(), fc_t.cuda()
     nbytes = B * 8 + lines * 4 * 4 + lines * 4 + B * 9 + lines * 4 + 24
+    fresh_state = lambda: (_clone_state(snap_gpu, "cuda"),)  # noqa: E731
     row = {"phase": "kernel", "name": "cache_access", "dtype": "int32",
            "shape": [B, num_sets, ways], "hot_sets": hot_sets,
            "max_abs_err": 0.0,
@@ -880,38 +926,91 @@ def kernel_cache_access(torch, timer, np, B=8192, id_range=40_000,
            "largest_bucket": int(np.bincount(
                cd._set_of(ids_t[ids_t >= 0], num_sets).numpy()).max()),
            "kernel_ms": timer(lambda st: cd.access(st, ids_d, fc_d),
-                              setup=lambda: (_clone_state(snap_gpu, "cuda"),)),
+                              setup=fresh_state),
+           "enqueue_us": enqueue_us(
+               torch, lambda st: cd.access(st, ids_d, fc_d), fresh_state),
            "plain_ms": host_ms(lambda st: cd.access(st, ids_t, fc_t),
                                setup=lambda: (_clone_state(snap_cpu, "cpu"),)),
            "plain_on": "host CPU (access_ref is a Python loop)",
            "library_ms": None, **bound(nbytes)}
     emit(row)
+    bucket = _bucket_row(torch, timer, ids_d, num_sets,
+                         f"B {B} hot_sets {hot_sets}", hot_sets=hot_sets)
+    return ({**summary([row]), "enqueue_us": row["enqueue_us"]},
+            summary([bucket]))
+
+
+def _bucket_row(torch, timer, ids_d, num_sets, what, **extra) -> dict:
+    """cache_bucket on `ids_d` exact against bucket_by_set_ref, then timed
+    beside the plain version and the library yardstick, the stable
+    torch.sort of the keys (the order without the start offsets; the keys
+    are computed outside the timer); emits and returns the row."""
+    from repro_torch.core import cache_device as cd
     order, start = cd.bucket_by_set(ids_d, num_sets)
     want_order, want_start = cd.bucket_by_set_ref(ids_d, num_sets)
-    # the library yardstick: the stable torch.sort of the keys (the order
-    # without the start offsets; the keys are computed outside the timer)
     key = torch.where(ids_d >= 0, cd._set_of(ids_d, num_sets).long(),
                       num_sets)
     torch.cuda.synchronize()
     check(torch.equal(order, want_order) and torch.equal(start, want_start),
-          f"cache_bucket B {B} hot_sets {hot_sets}")
-    bucket = {"phase": "kernel", "name": "cache_bucket", "dtype": "int32",
-              "shape": [B, num_sets], "hot_sets": hot_sets,
-              "max_abs_err": 0.0,
-              "kernel_ms": timer(lambda: cd.bucket_by_set(ids_d, num_sets)),
-              "plain_ms": timer(lambda: cd.bucket_by_set_ref(ids_d,
-                                                             num_sets)),
-              "library_ms": timer(lambda: torch.sort(key, stable=True)),
-              **bound(B * 4 + B * 4 + (num_sets + 2) * 4)}
-    emit(bucket)
-    return summary([row]), summary([bucket])
+          f"cache_bucket {what}")
+    B = ids_d.numel()
+    row = {"phase": "kernel", "name": "cache_bucket", "dtype": "int32",
+           "shape": [B, num_sets], **extra, "max_abs_err": 0.0,
+           "kernel_ms": timer(lambda: cd.bucket_by_set(ids_d, num_sets)),
+           "plain_ms": timer(lambda: cd.bucket_by_set_ref(ids_d, num_sets)),
+           "library_ms": timer(lambda: torch.sort(key, stable=True)),
+           **bound(B * 4 + B * 4 + (num_sets + 2) * 4)}
+    emit(row)
+    return row
+
+
+#: cache_bucket alone beyond the cache_access rows: (case, B, num_sets)
+CACHE_BUCKET_ROWS = (("key_windows", 8192, 20_000),
+                     ("b_200000", 200_000, 2048))
+#: (B, num_sets) held exact, untimed: no ids, one set, a ragged warp chunk,
+#: the last B of 16-bit counters and the first of 32-bit ones, key counts
+#: at and past one window's capacity (4448 keys of 16-bit counters, 2312
+#: of 32-bit ones), one bucket of all B 65535 requests
+CACHE_BUCKET_EDGES = ((0, 7), (1, 1), (33, 3), (65_535, 4447), (65_535, 4448),
+                      (65_536, 2311), (65_536, 2312), (100_000, 4448),
+                      (65_535, 1))
+
+
+def kernel_cache_bucket_rows(torch, timer, np) -> float:
+    """cache_bucket exact against bucket_by_set_ref on the card at
+    CACHE_BUCKET_EDGES, then at CACHE_BUCKET_ROWS: B 8192 over 20,000 sets
+    (20,001 keys, five windows of 16-bit counters) and B 200,000 over 2048
+    sets (32-bit counters, one window), ids with 2 % -1 pads, each beside
+    the stable torch.sort of its keys and its bound.  Returns the launch
+    floor: the median time of one empty launch (torch.cuda._sleep(1))
+    under the same timer."""
+    from repro_torch.core import cache_device as cd
+    rng = np.random.default_rng(3)
+    for B, num_sets in CACHE_BUCKET_EDGES:
+        ids = rng.integers(-1, 1 << 20, B).astype(np.int32)
+        ids_d = torch.from_numpy(ids).cuda()
+        got = cd.bucket_by_set(ids_d, num_sets)
+        want = cd.bucket_by_set_ref(ids_d, num_sets)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"cache_bucket B {B} over {num_sets} sets")
+    emit({"phase": "kernel", "name": "cache_bucket", "case": "edges",
+          "exact_at": [list(e) for e in CACHE_BUCKET_EDGES]})
+    floor = timer(lambda: torch.cuda._sleep(1))
+    for case, B, num_sets in CACHE_BUCKET_ROWS:
+        rng = np.random.default_rng(B + num_sets)
+        ids = rng.integers(0, 1 << 20, B).astype(np.int32)
+        ids[rng.random(B) < 0.02] = -1
+        _bucket_row(torch, timer, torch.from_numpy(ids).cuda(), num_sets,
+                    case, case=case, launch_floor_ms=floor)
+    return floor
 
 
 def cache_bucket_limit(torch) -> None:
-    """cache_bucket at the largest set count its wrapper accepts (the
-    histogram and the key tile fill a block's 227 KB of shared memory),
-    exact against bucket_by_set_ref; one set more, the C entry point
-    refuses with cudaErrorInvalidValue (1) before it launches."""
+    """cache_bucket at the largest set count its wrapper accepts (57087,
+    thirteen windows of keys), exact against bucket_by_set_ref; one set
+    more, the C entry point refuses with cudaErrorInvalidValue (1) before
+    it launches."""
     from repro_torch.core import cache_device as cd
     from repro_torch.kernels import _build
     ids = torch.arange(-64, 4096, dtype=torch.int32, device="cuda")
@@ -921,18 +1020,111 @@ def cache_bucket_limit(torch) -> None:
     check(torch.equal(order, want_order) and torch.equal(start, want_start),
           f"cache_bucket at {cd._MAX_SETS} sets")
     over = cd._MAX_SETS + 1
-    scratch = torch.empty(ids.numel() + 5 * (over + 1), dtype=torch.int32,
-                          device="cuda")
     start = torch.empty(over + 2, dtype=torch.int32, device="cuda")
     P, I = _build.P, _build.I
-    fn = _build.function("cache_access", "cache_bucket",
-                         (P, I, I, P, P, P, P))
-    err = fn(ids.data_ptr(), ids.numel(), over, scratch.data_ptr(),
-             order.data_ptr(), start.data_ptr(), _build.stream(ids))
+    fn = _build.function("cache_access", "cache_bucket", (P, I, I, P, P, P))
+    err = fn(ids.data_ptr(), ids.numel(), over, order.data_ptr(),
+             start.data_ptr(), _build.stream(ids))
     check(err == 1, f"cache_bucket at {over} sets returned {err}, not 1")
     emit({"phase": "kernel", "name": "cache_bucket", "case": "set_limit",
           "accepted_sets": cd._MAX_SETS, "refused_sets": over,
           "refused_with": err})
+
+
+#: what `--cache-variants` changes in cache_access.cu: the walk launched
+#: in plain stream order, after the sort ends (its griddepcontrol.wait then
+#: returns at once); 32-bit counters at every B, not 16-bit ones where
+#: B <= 65535; __match_any_sync in every group of the placement pass, not
+#: only where a key came twice; the sort's cluster of 1, 4 or 16 blocks in
+#: place of 8
+_PDL = "programmaticStreamSerializationAllowed = 1;"
+_REPEATS = "if (__any_sync(0xffffffffu, here && after != mine_before + 1)) {"
+_CTAS = "constexpr int kCtas = 8;"
+_BITS = "B <= 65535 ? launch_bucket<16>"
+CACHE_VARIANTS = {
+    "counters_32": ((_BITS, "B < 0 ? launch_bucket<16>"),),
+    "plain_walk": ((_PDL, _PDL.replace("1", "0")),),
+    "match_every_group": ((_REPEATS, "if (true) {"),),
+    "ctas_1": ((_CTAS, _CTAS.replace("8", "1")),),
+    "ctas_4": ((_CTAS, _CTAS.replace("8", "4")),),
+    "ctas_16": ((_CTAS, _CTAS.replace("8", "16")),),
+}
+
+
+def cache_variants(torch, np) -> int:
+    """Times cache_access and its cache_bucket beside copies of
+    cache_access.cu built with CACHE_VARIANTS, in turns (plain_walk,
+    shipped, the others, shipped, plain_walk) at every CACHE_ROWS row; every
+    call of each is held exact against access_ref and bucket_by_set_ref.
+    Returns 0."""
+    from repro_torch.kernels import _build
+    source = (ROOT / SOURCES["cache_access"][0]).read_text()
+    texts = {"shipped": source,
+             **{name: _edited(name, source, edits)
+                for name, edits in CACHE_VARIANTS.items()}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cache_"))
+    try:
+        libs = _variant_libs(tmp, "cache_access", texts)
+    finally:
+        shutil.rmtree(tmp)
+    emit({"phase": "cache_variants", "card": card_line()})
+    timer = Timer(torch)
+    turns = ("plain_walk", "shipped",
+             *(name for name in CACHE_VARIANTS if name != "plain_walk"),
+             "shipped_again", "plain_walk_again")
+    for case, kw in CACHE_ROWS:
+        row = {"phase": "cache_variants", "case": case}
+        for turn in turns:
+            _build._libs["cache_access"] = libs[turn.removesuffix("_again")]
+            access, bucket = kernel_cache_access(torch, timer, np, **kw)
+            row[turn] = {"cache_access_ms": access["ms"],
+                         "cache_bucket_ms": bucket["ms"],
+                         "enqueue_us": access["enqueue_us"]}
+        emit(row)
+    _build._libs.pop("cache_access")
+    return 0
+
+
+def cache_ab(torch, np, tree: Path) -> int:
+    """One side of an A/B of two trees (`--cache-ab TREE`): builds TREE's
+    kernels, runs phase 2's cache rows and phase 3's path against its
+    package, then phase 3 again under torch.profiler for the device
+    operations per step and the launches and device ms per step of the
+    cache kernels (`bucket*` and `walk_kernel`; the profiled run includes
+    the set-up and step 0's parity check, the same on both trees).
+    Returns 0."""
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch
+    check(Path(repro_torch.__file__).resolve().is_relative_to(
+        tree.resolve()), f"repro_torch imported from {repro_torch.__file__}")
+    card_and_build(torch)
+    timer = Timer(torch)
+    rows = {case: kernel_cache_access(torch, timer, np, **kw)
+            for case, kw in CACHE_ROWS}
+    floor = kernel_cache_bucket_rows(torch, timer, np)
+    del timer
+    main_path(torch, np)
+    trace = ROOT / "build" / "cache_ab_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        main_path(torch, np)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    dev = _device_busy(trace)
+    trace.unlink()
+    cache = {k: (n / STEPS, dev["kernel_ms_by_name"][k] / STEPS)
+             for k, n in dev["kernel_count_by_name"].items()
+             if "bucket" in k or "walk_kernel" in k}
+    emit({"phase": "cache_ab", "tree": str(tree), "card": card_line(),
+          "launch_floor_ms": floor,
+          **{case: {"cache_access_ms": a["ms"], "cache_bucket_ms": b["ms"],
+                    "enqueue_us": a["enqueue_us"]}
+             for case, (a, b) in rows.items()},
+          "device_ops_per_step": dev["device_ops"] / STEPS,
+          "cache_kernels_per_step": {k: n for k, (n, _) in cache.items()},
+          "cache_kernel_ms_per_step": {k: ms for k, (_, ms) in cache.items()}})
+    return 0
 
 
 def _visible(torch, B, Sq, Sk, causal, window, offsets):
@@ -1252,6 +1444,15 @@ FAULTS = {
 }
 
 
+def _edited(name: str, source: str, edits) -> str:
+    """`source` with each (old, new) of `edits` replaced; each old must be
+    in it once."""
+    for old, new in edits:
+        check(source.count(old) == 1, f"{name}: {old!r} not in the source")
+        source = source.replace(old, new)
+    return source
+
+
 def _variant_libs(tmp: Path, kernel: str, sources: dict,
                   logs: dict | None = None) -> dict:
     """Build each {name: text} copy of csrc/<kernel>.cu into `tmp`, one nvcc
@@ -1313,16 +1514,9 @@ def segment_mean_variants(torch) -> int:
     import tempfile
     from repro_torch.kernels import _build, ops, ref
     source = (ROOT / SOURCES["segment_mean"][0]).read_text()
-    texts = {}
-    for name, edits in SEGMENT_MEAN_VARIANTS.items():
-        if isinstance(edits, str):
-            texts[name] = (ROOT / edits).read_text()
-            continue
-        text = source
-        for old, new in edits:
-            check(text.count(old) == 1, f"{name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        texts[name] = text
+    texts = {name: (ROOT / edits).read_text() if isinstance(edits, str)
+             else _edited(name, source, edits)
+             for name, edits in SEGMENT_MEAN_VARIANTS.items()}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_variants_"))
     ok = True
     try:
@@ -1466,16 +1660,6 @@ def flash_decode_variants(torch) -> int:
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def enqueue_us(fn) -> float:
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e6)
-        torch.cuda.synchronize()
-        return statistics.median(times)
-
     for case in FLASH_CASES:
         if not _is_split(case):
             continue
@@ -1506,7 +1690,7 @@ def flash_decode_variants(torch) -> int:
                 q, k, v, out, kw["causal"], kw["window"], None,
                 kw["q_offset"], merge=False))
             for path, call in paths.items():
-                row[f"{path}_enqueue_us"] = enqueue_us(call)
+                row[f"{path}_enqueue_us"] = enqueue_us(torch, call)
             work, _, mask, is_causal = _flash_work(torch, case, q, kw)
             row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=is_causal,
@@ -3842,9 +4026,9 @@ def lm_families(torch, np) -> dict:
 
 def _device_busy(trace_path: Path) -> dict:
     """Kernel, copy and memset intervals of a Chrome trace: their union in
-    ms, their count, and the kernels' summed ms by name."""
+    ms, their count, and the kernels' summed ms and count by name."""
     events = json.loads(trace_path.read_text())["traceEvents"]
-    spans, by_name = [], {}
+    spans, by_name, count = [], {}, {}
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in (
                 "kernel", "gpu_memcpy", "gpu_memset"):
@@ -3852,12 +4036,13 @@ def _device_busy(trace_path: Path) -> dict:
         spans.append((e["ts"], e["ts"] + e["dur"]))
         if e["cat"] == "kernel":
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+            count[e["name"]] = count.get(e["name"], 0) + 1
     busy, end = 0.0, float("-inf")
     for t0, t1 in sorted(spans):
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
     return {"busy_ms": busy / 1e3, "device_ops": len(spans),
-            "kernel_ms_by_name": by_name}
+            "kernel_ms_by_name": by_name, "kernel_count_by_name": count}
 
 
 def lm_profile(torch, np, engine, cfg, tick_ms: float) -> None:
@@ -4847,6 +5032,13 @@ def main() -> int:
     parser.add_argument("--flash-decode-variants", action="store_true",
                         help="instead of the run, time the fused split-KV "
                         "decode beside the two-launch path it replaced")
+    parser.add_argument("--cache-variants", action="store_true",
+                        help="instead of the run, time cache_access beside "
+                        "its CACHE_VARIANTS")
+    parser.add_argument("--cache-ab", nargs="?", const=".", metavar="TREE",
+                        help="instead of the run, phase 2's cache rows and "
+                        "phase 3 (also profiled) against the package of "
+                        "TREE, a directory inside this checkout")
     args = parser.parse_args()
     # the run uses one card: keep only the first visible one, so that the
     # device count on the last line is the number of cards that did the work
@@ -4857,11 +5049,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}",
-              file=sys.stderr)
+    tree = ROOT if args.cache_ab is None else (ROOT / args.cache_ab).resolve()
+    if not tree.is_relative_to(ROOT):
+        print(f"chip_smoke: {tree} is not inside {ROOT}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    if not (tree / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch in {tree}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(tree / "src"))
     import numpy as np
 
     check(torch.cuda.device_count() == 1,
@@ -4872,6 +5067,10 @@ def main() -> int:
         return segment_mean_variants(torch)
     if args.flash_decode_variants:
         return flash_decode_variants(torch)
+    if args.cache_variants:
+        return cache_variants(torch, np)
+    if args.cache_ab is not None:
+        return cache_ab(torch, np, tree)
     card_and_build(torch)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4885,12 +5084,11 @@ def main() -> int:
                 "frontier_read": kernel_frontier_read(torch, timer, np),
                 "flash_attention": kernel_flash_attention(torch, timer, gen),
                 "flash_combine": kernel_flash_combine(torch, timer, gen)}
-    measured["cache_access"], measured["cache_bucket"] = kernel_cache_access(
-        torch, timer, np)
-    window_access, window_bucket = kernel_cache_access(
-        torch, timer, np, B=28_000, id_range=100_000)
-    hot_access, hot_bucket = kernel_cache_access(torch, timer, np,
-                                                 hot_sets=4)
+    cache = {case: dict(zip(("cache_access", "cache_bucket"),
+                            kernel_cache_access(torch, timer, np, **kw)))
+             for case, kw in CACHE_ROWS}
+    measured.update(cache["uniform_8192"])
+    launch_floor = kernel_cache_bucket_rows(torch, timer, np)
     cache_bucket_limit(torch)
     del timer
     by_path = {"gids-device": main_path(torch, np)}
@@ -4919,12 +5117,11 @@ def main() -> int:
         launches = {path: n[name] for path, n in by_path.items()
                     if name in PATH_KERNELS[path]}
         if name in ("cache_access", "cache_bucket"):
-            window, hot = ((window_access, hot_access)
-                           if name == "cache_access"
-                           else (window_bucket, hot_bucket))
+            window = cache["merged_window_28000"][name]
             extra = {"merged_window_ms": window["ms"],
                      "merged_window_bound_ms": window["bound_ms"],
-                     "hot_4_sets_ms": hot["ms"]}
+                     "hot_4_sets_ms": cache["hot_4_sets"][name]["ms"],
+                     "launch_floor_ms": launch_floor}
         else:
             extra = {k: v for k, v in m.items() if k not in SUMMARY_KEYS}
         kernels.append({"name": name, "route": "cuda", "source": source,

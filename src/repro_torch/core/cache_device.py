@@ -8,9 +8,11 @@ the same first-way choices, the same counters.  Padding node id = -1.
 
 `access` dispatches on the device: CPU tensors run `access_ref`, a Python
 loop that mirrors `cache_jax.access` request by request; CUDA tensors run
-`cache_bucket` (a stable counting sort of the requests by set) and then the
-`cache_access` kernel (kernels/csrc/cache_access.cu), one warp per set
-walking its own bucket in request order.
+`cache_bucket` (a stable counting sort of the requests by set, one launch
+of one cluster of blocks in shared memory) and then the `cache_access`
+kernel (kernels/csrc/cache_access.cu), one warp per set walking its own
+bucket in request order, launched so that it starts while the sort runs
+and waits for it before it reads the buckets.
 """
 from __future__ import annotations
 
@@ -24,11 +26,12 @@ from repro_torch.kernels import _build
 
 _HASH_MULT = 0x9E3779B9  # 32-bit Fibonacci hash, as the reference's
 _MAX_WAYS = 64           # the kernel tracks filled ways in a 64-bit mask
-_BUCKET_TILE = 1024      # requests per tile of cache_bucket's count pass
-#: cache_bucket's count pass holds a (sets + 1) int32 histogram beside its
-#: tile of int32 keys in one block's shared memory, at most 227 KB on an
-#: H100: 57087 sets, the kernel's kMaxSets
-_MAX_SETS = (227 * 1024 - 4 * _BUCKET_TILE) // 4 - 1
+#: the largest set count cache_bucket accepts, the kernel's kMaxSets.  The
+#: three-kernel bucketing it replaced held a (sets + 1) int32 histogram
+#: beside a 1024-key tile in one block's 227 KB of shared memory, which
+#: gave 57087; the one-launch sort takes its keys in windows and has no such
+#: ceiling, and keeps the value so every count accepted before still is
+_MAX_SETS = 57087
 
 
 class CacheState(NamedTuple):
@@ -189,18 +192,12 @@ def _bucket_cuda(ids: torch.Tensor,
         raise ValueError(f"cache_bucket: num_sets must be in "
                          f"1..{_MAX_SETS}, got {num_sets}")
     B = ids.shape[0]
-    tiles = -(-B // _BUCKET_TILE)
-    dev = ids.device
-    scratch = torch.empty(B + tiles * (num_sets + 1), dtype=torch.int32,
-                          device=dev)
-    order = torch.empty(B, dtype=torch.int32, device=dev)
-    start = torch.empty(num_sets + 2, dtype=torch.int32, device=dev)
+    order = torch.empty(B, dtype=torch.int32, device=ids.device)
+    start = torch.empty(num_sets + 2, dtype=torch.int32, device=ids.device)
     P, I = _build.P, _build.I
-    fn = _build.function("cache_access", "cache_bucket",
-                         (P, I, I, P, P, P, P))
-    _build.check(fn(ids.data_ptr(), B, num_sets, scratch.data_ptr(),
-                    order.data_ptr(), start.data_ptr(), _build.stream(ids)),
-                 "cache_bucket")
+    fn = _build.function("cache_access", "cache_bucket", (P, I, I, P, P, P))
+    _build.check(fn(ids.data_ptr(), B, num_sets, order.data_ptr(),
+                    start.data_ptr(), _build.stream(ids)), "cache_bucket")
     _build.LAUNCHES["cache_bucket"] += 1
     return order, start
 

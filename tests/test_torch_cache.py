@@ -245,60 +245,139 @@ def test_access_set_by_set_in_bucketed_order_matches_reference(seed):
     assert int(split.hits) > 0 and int(split.bypasses) > 0
 
 
-def _tiled_counting_sort(keys: np.ndarray, n_keys: int, tile: int):
-    """cache_bucket's three passes in numpy: per-tile histograms and ranks
-    from earlier keys of the same tile, key totals scanned into starts,
-    then each request placed at start + earlier tiles' count + rank."""
+def _tiled_counting_sort(keys: np.ndarray, n_keys: int, window: int,
+                         warps: int = 128, lanes: int = 32):
+    """cache_bucket's one-launch sort in numpy.  Warp w of the cluster
+    (8 blocks of 16 warps, block-major: 128) owns the requests
+    [w * ceil(B / warps), ...).  For each window of `window` keys: (a) each
+    warp counts its chunk's keys of the window; (b) a scan over (key, warp)
+    in key-major order (a block's warps after the earlier blocks') gives
+    each warp its offset within each bucket, and the bucket starts from the
+    total of all earlier windows; (c) each warp
+    walks its chunk `lanes` requests at a time in request order: the group
+    advances each key's offset by its count of that key, and a request
+    takes its bucket's start + its warp's offset after the group's advance
+    - that count + its rank among the equal keys of its group (the lanes
+    below it with the same key)."""
     B = len(keys)
-    tiles = -(-B // tile)
-    counts = np.zeros((tiles, n_keys), np.int64)
-    rank = np.zeros(B, np.int64)
-    for t in range(tiles):
-        ks = keys[t * tile:(t + 1) * tile]
-        for k, key in enumerate(ks):
-            rank[t * tile + k] = int((ks[:k] == key).sum())
-        counts[t] = np.bincount(ks, minlength=n_keys)
-    start = np.concatenate([[0], np.cumsum(counts.sum(0))])
-    order = np.empty(B, np.int64)
-    for i, key in enumerate(keys):
-        t = i // tile
-        order[start[key] + counts[:t, key].sum() + rank[i]] = i
+    chunk = -(-B // warps)
+    groups = [(w, c, keys[c:min(c + lanes, (w + 1) * chunk, B)])
+              for w in range(warps)
+              for c in range(w * chunk, min(B, (w + 1) * chunk), lanes)]
+    order = np.full(B, -1, np.int64)
+    start = np.zeros(n_keys + 1, np.int64)
+    base = 0
+    for k0 in range(0, n_keys, window):
+        n = min(window, n_keys - k0)
+        count = np.zeros((warps, n), np.int64)
+        for w, _, group in groups:                                # (a)
+            mine = group[(group >= k0) & (group < k0 + n)] - k0
+            np.add.at(count[w], mine, 1)
+        offset = np.cumsum(count, axis=0) - count                 # (b)
+        totals = count.sum(axis=0)
+        bucket = base + np.cumsum(totals) - totals
+        start[k0:k0 + n] = bucket
+        base += int(totals.sum())
+        for w, c, group in groups:                                # (c)
+            for key, size in zip(*np.unique(group, return_counts=True)):
+                if k0 <= key < k0 + n:
+                    offset[w, key - k0] += size
+            for lane, key in enumerate(group):
+                if k0 <= key < k0 + n:
+                    peers = int((group == key).sum())
+                    rank = int((group[:lane] == key).sum())
+                    order[bucket[key - k0] + offset[w, key - k0] - peers
+                          + rank] = c + lane
+    start[n_keys] = B
+    assert (order >= 0).all()
     return order, start            # start[n_keys] = B
 
 
-@pytest.mark.parametrize("tile", [7, 32, 1024])
-@pytest.mark.parametrize("skew", [False, True], ids=["uniform", "hot"])
-def test_bucket_by_set_equals_tiled_counting_sort(skew, tile):
-    """bucket_by_set (the plain version of cache_bucket) is the stable
-    argsort of the set, padding last, and equals the kernel's tiled
-    counting sort; start has num_sets + 2 entries ending at B."""
-    rng = np.random.default_rng(11)
-    num_sets, B = 16, 300
-    if skew:
-        ids = _skewed_ids(rng, num_sets, [3], B)
-    else:
-        ids = rng.integers(-1, 500, B).astype(np.int32)
+def _check_bucketing(ids: np.ndarray, num_sets: int, window: int,
+                     warps: int = 128) -> None:
+    """bucket_by_set (the plain version of cache_bucket) returns int32
+    (B,) and (num_sets + 2,) ending at B, equal to the one-launch model and
+    to the stable argsort of the key (set, or num_sets for padding)."""
     ids_t = torch.from_numpy(ids)
     order, start = cache_device.bucket_by_set(ids_t, num_sets)
     assert order.dtype == torch.int32 and start.dtype == torch.int32
-    assert start.shape == (num_sets + 2,) and int(start[-1]) == B
+    assert start.shape == (num_sets + 2,) and int(start[-1]) == len(ids)
     sets = cache_device._set_of(ids_t, num_sets).numpy()
     keys = np.where(ids >= 0, sets, num_sets)
-    want_order, want_start = _tiled_counting_sort(keys, num_sets + 1, tile)
+    want_order, want_start = _tiled_counting_sort(keys, num_sets + 1, window,
+                                                  warps)
     np.testing.assert_array_equal(order.numpy(), want_order)
     np.testing.assert_array_equal(start.numpy(), want_start)
     np.testing.assert_array_equal(order.numpy(),
                                   np.argsort(keys, kind="stable"))
 
 
+@pytest.mark.parametrize("window", [7, 32, 1024])
+@pytest.mark.parametrize("skew", [False, True], ids=["uniform", "hot"])
+def test_bucket_by_set_equals_tiled_counting_sort(skew, window):
+    """On 300 ids over 16 sets (17 keys: three windows of 7, or one),
+    bucket_by_set equals the kernel's one-launch counting sort and the
+    stable argsort; start has num_sets + 2 entries ending at B."""
+    rng = np.random.default_rng(11)
+    num_sets, B = 16, 300
+    if skew:
+        ids = _skewed_ids(rng, num_sets, [3], B)
+    else:
+        ids = rng.integers(-1, 500, B).astype(np.int32)
+    _check_bucketing(ids, num_sets, window)
+
+
+@pytest.mark.parametrize("num_sets,window,B", [
+    (100, 8, 500),         # 13 windows
+    (5000, 2312, 3000),    # 5001 keys in windows of 32-bit counters: 3
+    (57087, 4448, 600),    # the largest set count, 16-bit counters: 13
+])
+def test_bucket_one_launch_sort_over_several_key_windows(num_sets, window, B):
+    """Key counts that take several windows, each window's buckets placed
+    from the total of the windows before it."""
+    rng = np.random.default_rng(num_sets)
+    ids = rng.integers(-1, 4 * num_sets, B).astype(np.int32)
+    _check_bucketing(ids, num_sets, window)
+
+
+@pytest.mark.parametrize("warps,B", [(128, 20000), (4, 300)])
+def test_bucket_one_launch_sort_with_chunks_past_one_group(warps, B):
+    """Chunks of 157 and 75 requests a warp: each warp's offsets carry over
+    several groups of 32, with a ragged last group."""
+    rng = np.random.default_rng(B)
+    ids = _skewed_ids(rng, 64, list(range(0, 64, 3)), B, pool=1 << 14)
+    _check_bucketing(ids, 64, 4448, warps)
+
+
+def test_bucket_one_launch_sort_all_in_one_hot_set():
+    """Every id hashes into one set: one bucket holds all B requests, its
+    groups are whole warps of equal keys, and every other bucket is
+    empty."""
+    num_sets, B = 2048, 4000
+    cand = np.arange(1 << 22, dtype=np.int32)
+    sets = cache_device._set_of(torch.from_numpy(cand), num_sets).numpy()
+    hot = cand[sets == 5]
+    ids = np.random.default_rng(5).choice(hot, B).astype(np.int32)
+    _check_bucketing(ids, num_sets, 4448)
+    start = cache_device.bucket_by_set(torch.from_numpy(ids), num_sets)[1]
+    assert int(start[5]) == 0 and int(start[6]) == B
+
+
 def test_bucket_wrapper_refuses_cpu_tensors_and_counts_no_launch():
-    """CPU ids take the plain version; the kernel wrapper raises on them
-    and counts nothing."""
+    """CPU ids take the plain version; the kernel wrapper, which allocates
+    only order and start and passes no scratch, raises on them before it
+    looks up the kernel, and counts nothing."""
+    from unittest import mock
+
     from repro_torch.kernels import _build
     ids = torch.tensor([3, -1, 7], dtype=torch.int32)
     before = dict(_build.LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA"):
-        cache_device._bucket_cuda(ids, 4)
+    with mock.patch.object(_build, "function",
+                           side_effect=AssertionError("looked up")):
+        with pytest.raises(ValueError, match="CUDA"):
+            cache_device._bucket_cuda(ids, 4)
+    assert not hasattr(cache_device, "_BUCKET_TILE")
+    assert cache_device._MAX_SETS == 57087
     order, start = cache_device.bucket_by_set(ids, 4)
     assert _build.LAUNCHES == before and "cache_bucket" in _build.LAUNCHES
     assert int(start[-1]) == 3 and int(order[-1]) == 1      # the pad last
