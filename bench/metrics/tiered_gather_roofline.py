@@ -1,0 +1,16 @@
+"""`tiered_gather` (kernels/csrc/tiered_gather.cu): the least time its bytes
+need at the card's HBM rate over its traced kernel time, in %.  The bytes
+come from each step's rows (`bench.yardstick.tiered_gather_bytes`)."""
+from bench import yardstick
+
+KERNEL = "tiered_gather_kernel"
+
+
+def read(w):
+    if w.device_trace is None:
+        return None
+    secs, launches = w.device_trace.kernel_s(KERNEL)
+    if launches != len(w.steps) or secs <= 0:
+        return None
+    nbytes = sum(s.tiered_gather_bytes for s in w.steps)
+    return 100.0 * nbytes / yardstick.HBM_BYTES_PER_S / secs
