@@ -303,9 +303,13 @@ for placement, co in (("hash", False), ("metis-lite", True)):
 # (per-hop sampling, edge-page reads), execute (merged gather, per-shard
 # storage drains, fault recovery sub-events) — in both virtual (priced)
 # and wall-clock time, with a MetricsRegistry accumulating counters/
-# histograms alongside.  Tracing is bit-invisible: the traced loader
-# below prices the exact same floats as the untraced ones above.  The
-# export is Chrome trace-event JSON — open trace.json in
+# histograms alongside.  On the wall-clock track the loader's own hot
+# path nests under plan_next and execute_window (category "hot_path":
+# sampling, admits, the window's merge, the gather with one probe per
+# tier, the reports, pricing, feedback); the file's otherData gives the
+# time.perf_counter base of that track.  Tracing is bit-invisible: the
+# traced loader below prices the exact same floats as the untraced ones
+# above.  The export is Chrome trace-event JSON — open trace.json in
 # https://ui.perfetto.dev and every batch, window, shard, and hop is a
 # track you can scrub.
 from repro_torch.obs import Tracer

@@ -13,6 +13,11 @@ tier's expansions, or else the staged unique rows expanded per batch on
 the device.  On a sharded namespace the reports carry the per-shard split
 of the storage rows (and, on the host plane, the rows and lines that cross
 a host link), and a merged window coalesces 4 KB lines shard-locally.
+
+An enabled `tracer` (the loader hands it its own, and to every tier that
+takes one) gets the gather as two wall spans: `gather` (the tier fold,
+one `probe` span per tier, and the rows' delivery) and `report` (the
+reports built from the plan).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.obs import HOT_PATH, NULL_TRACER
 from .accumulator import MergedWindow
 from .constant_buffer import ConstantBuffer
 from .software_cache import WindowBufferedCache
@@ -199,6 +205,14 @@ class TieredFeatureStore:
             torch.from_numpy(np.ascontiguousarray(self.features)),
             self.device)
         self.last_plan: GatherPlan | None = None
+        self.tracer = NULL_TRACER
+
+    def use_tracer(self, tracer) -> None:
+        """Hand `tracer` to the store and to every tier that takes one."""
+        self.tracer = tracer
+        for t in self.tiers:
+            if hasattr(t, "tracer"):
+                t.tracer = tracer
 
     @property
     def cache(self) -> WindowBufferedCache | None:
@@ -225,7 +239,7 @@ class TieredFeatureStore:
         return None
 
     def plan(self, node_ids: np.ndarray) -> GatherPlan:
-        return build_plan(self.tiers, node_ids)
+        return build_plan(self.tiers, node_ids, tracer=self.tracer)
 
     def host_rows(self, node_ids: np.ndarray) -> torch.Tensor:
         """features[node_ids] staged on the host and copied to the device."""
@@ -236,12 +250,14 @@ class TieredFeatureStore:
         """Fetch feature rows for (deduplicated) node_ids through the tiers.
         A device tier on top already gathered them on the device during its
         probe; otherwise they come from the backstop through the host."""
-        plan = self.plan(node_ids)
-        rows = getattr(plan.tiers[0], "last_rows", None)
-        if rows is None or len(rows) != len(node_ids):
-            rows = self.host_rows(node_ids)
-        report = GatherReport.from_plan(
-            plan, bytes_per_row=self.feature_dim * self.itemsize)
+        with self.tracer.stage("gather", cat=HOT_PATH, rows=len(node_ids)):
+            plan = self.plan(node_ids)
+            rows = getattr(plan.tiers[0], "last_rows", None)
+            if rows is None or len(rows) != len(node_ids):
+                rows = self.host_rows(node_ids)
+        with self.tracer.stage("report", cat=HOT_PATH):
+            report = GatherReport.from_plan(
+                plan, bytes_per_row=self.feature_dim * self.itemsize)
         self.last_plan = plan
         return rows, report
 
@@ -260,15 +276,28 @@ class TieredFeatureStore:
         split + window telemetry), and the window-level report over the
         unique set that `StorageTimeline.price_merged_burst` prices."""
         unique = merged.unique_nodes
-        inverses = [merged.batch_inverse(i) for i in range(merged.n_batches)]
-        plan = build_plan_merged(self.tiers, unique,
-                                 merged.batch_multiplicity(), inverses)
-        rows_list = getattr(self.tiers[0], "last_window_rows", None)
-        if rows_list is None:
-            rows_u = self.host_rows(unique)
-            rows_list = [rows_u.index_select(0, torch.from_numpy(
-                np.asarray(inv, np.int64)).to(self.device))
-                for inv in inverses]
+        with self.tracer.stage("gather", cat=HOT_PATH, rows=len(unique)):
+            inverses = [merged.batch_inverse(i)
+                        for i in range(merged.n_batches)]
+            plan = build_plan_merged(self.tiers, unique,
+                                     merged.batch_multiplicity(), inverses,
+                                     tracer=self.tracer)
+            rows_list = getattr(self.tiers[0], "last_window_rows", None)
+            if rows_list is None:
+                rows_u = self.host_rows(unique)
+                rows_list = [rows_u.index_select(0, torch.from_numpy(
+                    np.asarray(inv, np.int64)).to(self.device))
+                    for inv in inverses]
+        with self.tracer.stage("report", cat=HOT_PATH):
+            return rows_list, *self._merged_reports(merged, plan, inverses,
+                                                    io_bytes)
+
+    def _merged_reports(self, merged: MergedWindow, plan: GatherPlan,
+                        inverses: list[np.ndarray], io_bytes: int
+                        ) -> tuple[list[CoalescedReport], CoalescedReport]:
+        """The per-batch and window-level reports of a merged window's
+        plan; sets `last_plan`."""
+        unique = merged.unique_nodes
         bytes_per_row = self.feature_dim * self.itemsize
         storage_mask = plan.storage_mask()
         n_storage_unique = int(storage_mask.sum())
@@ -341,7 +370,7 @@ class TieredFeatureStore:
                 shard_rows=batch_shard_rows, remote_rows=batch_remote_rows,
                 **tier_meta, **window_stats))
         self.last_plan = plan
-        return rows_list, reports, window_report
+        return reports, window_report
 
     def push_window(self, future_nodes: np.ndarray) -> None:
         """Announce a future batch to every tier (window pinning etc.)."""

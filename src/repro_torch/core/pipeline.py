@@ -49,8 +49,11 @@ reference.  A `tracer` (repro_torch.obs) observes the loader: it
 wall-clocks the `plan_next`, `execute` and `execute_window` stages, builds
 one priced span tree per batch and window (with per-shard and fault
 overlays), and receives burst, hop, tier and controller telemetry in its
-metrics registry.  Tracing never feeds back: every priced float, block and
-feature row is the same with the default no-op tracer.
+metrics registry.  Inside those stages it gets the port's own wall spans
+of the hot path, category `HOT_PATH`, each under the parent
+`HOT_PATH_SPANS` names: the loader hands the tracer to its store and to
+every tier that takes one.  Tracing never feeds back: every priced float,
+block and feature row is the same with the default no-op tracer.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.obs import NULL_TRACER, attach_burst_spans
+from repro_torch.obs import HOT_PATH, NULL_TRACER, attach_burst_spans
 from repro_torch.sampling.ladies import ladies_sample_blocks
 from repro_torch.sampling.neighbor import SampledBlocks, host_sample_blocks
 from repro_torch.sampling.tiered import tiered_sample_blocks
@@ -80,6 +83,28 @@ from .topology import TieredTopologyStore
 #: at construction: an unknown sampler fails when the config is built, not
 #: on the first batch.
 SAMPLERS = ("neighbor", "ladies")
+
+#: The port's hot-path wall spans (category `HOT_PATH`) and the stages they
+#: open under.  Host and LADIES sampling (`sample_blocks`; a topology plane
+#: records the reference's `sample` stage instead), the window admits, the
+#: merge of a window's request lists, the gather (one `probe` per tier the
+#: fold offers requests: a device tier's host stages under it) and the
+#: reports built from its plan, the pricing with the accumulator's update,
+#: and the feedback step.
+HOT_PATH_SPANS: dict[str, tuple[str, ...]] = {
+    "sample_blocks": ("plan_next",),
+    "admit": ("plan_next", "execute_window"),
+    "merge": ("execute_window",),
+    "gather": ("execute", "execute_window"),
+    "probe": ("gather",),
+    "future_counts": ("probe",),      # DeviceStoreTier
+    "access": ("probe",),             # the host planes' row-store tiers
+    "stage_host": ("probe",),
+    "probe_wait": ("probe",),         # DeviceStoreTier
+    "report": ("execute", "execute_window"),
+    "price": ("execute", "execute_window"),
+    "feedback": ("execute", "execute_window"),
+}
 
 
 @dataclasses.dataclass
@@ -303,6 +328,7 @@ class GIDSDataLoader:
         self._batch_index = 0
         self._window_index = 0
         if self.tracer.enabled:
+            self.store.use_tracer(self.tracer)
             self.timeline.metrics = self.tracer.metrics
             if self.topo is not None:
                 self.topo.timeline.metrics = self.tracer.metrics
@@ -319,20 +345,22 @@ class GIDSDataLoader:
         cfg = self.config
         seeds = self.rng.choice(self.train_ids, size=cfg.batch_size,
                                 replace=len(self.train_ids) < cfg.batch_size)
-        if cfg.sampler == "neighbor":
-            if self.topo is not None:
-                # same math, same RNG stream: blocks bit-identical to the
-                # host sampler, plus per-hop priced TopologyGatherReports
-                return tiered_sample_blocks(self.graph, self.topo, seeds,
-                                            cfg.fanouts, self.rng,
-                                            tracer=self.tracer)
-            return host_sample_blocks(self.graph, seeds, cfg.fanouts,
-                                      self.rng)
-        if cfg.sampler == "ladies":
-            # LADIES reads the host CSR (a topology plane refuses it at
-            # construction, as the reference does)
-            return ladies_sample_blocks(self.graph, seeds,
-                                        cfg.ladies_layer_sizes, self.rng)
+        if cfg.sampler == "neighbor" and self.topo is not None:
+            # same math, same RNG stream: blocks bit-identical to the host
+            # sampler, plus per-hop priced TopologyGatherReports
+            return tiered_sample_blocks(self.graph, self.topo, seeds,
+                                        cfg.fanouts, self.rng,
+                                        tracer=self.tracer)
+        with self.tracer.stage("sample_blocks", cat=HOT_PATH,
+                               seeds=len(seeds)):
+            if cfg.sampler == "neighbor":
+                return host_sample_blocks(self.graph, seeds, cfg.fanouts,
+                                          self.rng)
+            if cfg.sampler == "ladies":
+                # LADIES reads the host CSR (a topology plane refuses it at
+                # construction, as the reference does)
+                return ladies_sample_blocks(self.graph, seeds,
+                                            cfg.ladies_layer_sizes, self.rng)
         raise ValueError(cfg.sampler)
 
     def _refill_lookahead(self) -> int:
@@ -365,8 +393,9 @@ class GIDSDataLoader:
             return
         while (len(wt.window) < wt.window_depth
                and self._win_idx < len(self._lookahead)):
-            self.store.push_window(
-                self._lookahead[self._win_idx][1].all_nodes)
+            nodes = self._lookahead[self._win_idx][1].all_nodes
+            with self.tracer.stage("admit", cat=HOT_PATH, rows=len(nodes)):
+                self.store.push_window(nodes)
             self._win_idx += 1
 
     def plan_next(self) -> BatchPlan:
@@ -382,13 +411,18 @@ class GIDSDataLoader:
     def execute(self, plan: BatchPlan) -> Batch:
         """Stage 2: data movement + pricing."""
         blocks = plan.blocks
-        with self.tracer.stage("execute") as sp:
+        tr = self.tracer
+        with tr.stage("execute") as sp:
             rows, report = self.store.gather(blocks.all_nodes)
-            self.accumulator.update(report.n_requests, report.redirected)
-            outstanding = self.accumulator.outstanding(blocks.num_requests)
-            prev_burst = self.timeline.shard_burst
-            gather_s = self.plane.price(self.timeline, report, outstanding)
-            charge = self._feedback_step(blocks.all_nodes, None)
+            with tr.stage("price", cat=HOT_PATH):
+                self.accumulator.update(report.n_requests, report.redirected)
+                outstanding = self.accumulator.outstanding(
+                    blocks.num_requests)
+                prev_burst = self.timeline.shard_burst
+                gather_s = self.plane.price(self.timeline, report,
+                                            outstanding)
+            with tr.stage("feedback", cat=HOT_PATH):
+                charge = self._feedback_step(blocks.all_nodes, None)
             t = gather_s + charge
             # a topology plane priced the sampling stage when the blocks
             # were drawn (plan_next); prep covers both
@@ -523,9 +557,11 @@ class GIDSDataLoader:
         stage each unique row once and expand it per batch on the device,
         and price the window as one line-coalesced storage burst amortized
         equally across its batches."""
-        with self.tracer.stage("execute_window", n_plans=len(plans)) as sp:
-            merged = self.accumulator.merge(
-                [p.blocks.all_nodes for p in plans])
+        tr = self.tracer
+        with tr.stage("execute_window", n_plans=len(plans)) as sp:
+            with tr.stage("merge", cat=HOT_PATH, batches=len(plans)):
+                merged = self.accumulator.merge(
+                    [p.blocks.all_nodes for p in plans])
             # retire the consumed window entries and stage the NEXT
             # window's: the one merged access pins its fills by the
             # upcoming reuse
@@ -533,17 +569,19 @@ class GIDSDataLoader:
             self._sync_window()
             rows_list, reports, window_report = \
                 self.store.gather_merged(merged)
-            # one telemetry update per window: the unique split
-            self.accumulator.update(window_report.n_requests,
-                                    window_report.redirected)
-            prev_burst = self.timeline.shard_burst
-            gather_s = self.timeline.price_merged_burst(window_report)
+            with tr.stage("price", cat=HOT_PATH):
+                # one telemetry update per window: the unique split
+                self.accumulator.update(window_report.n_requests,
+                                        window_report.redirected)
+                prev_burst = self.timeline.shard_burst
+                gather_s = self.timeline.price_merged_burst(window_report)
             # the window is one priced burst, so it is one feedback tick
             # over the unique request set with its window multiplicity; a
             # migration charge amortizes across the window's batches like
             # the burst
-            charge = self._feedback_step(merged.unique_nodes,
-                                         merged.batch_multiplicity())
+            with tr.stage("feedback", cat=HOT_PATH):
+                charge = self._feedback_step(merged.unique_nodes,
+                                             merged.batch_multiplicity())
             burst_s = gather_s + charge
             sp.modelled(burst_s)
             if self.tracer.enabled:

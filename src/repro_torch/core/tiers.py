@@ -33,6 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import HOT_PATH, NULL_TRACER
 from . import cache_device, device_store
 from .constant_buffer import ConstantBuffer
 from .software_cache import WindowBufferedCache
@@ -202,7 +203,9 @@ class _RowStoreTier(_TierBase):
     On CUDA, `last_split_ms` holds the last probe's time per stage (the
     numpy probe with its slots and fillers, and host staging, on the host
     clock; the rest between CUDA events) and `last_counts` its rows, hits,
-    staged rows, filled lines and H2D bytes.
+    staged rows, filled lines and H2D bytes.  An enabled `tracer` gets the
+    two host stages as wall spans `access` and `stage_host`, from the same
+    clock reads.
     """
 
     latency_class = "hbm"
@@ -218,6 +221,7 @@ class _RowStoreTier(_TierBase):
         self.last_window_rows: list[torch.Tensor] | None = None
         self.last_split_ms: dict[str, float] = {}
         self.last_counts: dict[str, int] = {}
+        self.tracer = NULL_TRACER
 
     def _flat_tags(self) -> np.ndarray:
         """The tag of every line of the row store, in its order."""
@@ -290,6 +294,12 @@ class _RowStoreTier(_TierBase):
             self.last_split_ms = {"probe": (t1 - t0) * 1e3,
                                   "stage_host": (t2 - t1) * 1e3} \
                 | _event_split(events, ["start", "h2d", "gather", "fill"])
+        if self.tracer.enabled:
+            self.tracer.record("access", t0, t1, rows=len(node_ids),
+                               hits=self.last_counts["hits"])
+            self.tracer.record("stage_host", t1, t2,
+                               rows=self.last_counts["staged_rows"],
+                               bytes=self.last_counts["needed_bytes"])
         return hits
 
     def device_rows(self) -> torch.Tensor:
@@ -536,8 +546,12 @@ class DeviceStoreTier(_TierBase):
     of this tier.  No shape bucket is needed: requests are not padded.
     A merged-window probe (`probe_merged`) stages the window's unique rows
     once and leaves one device tensor per batch in `last_window_rows`.
-    On CUDA, `last_split_ms` holds the last probe's time per stage: host
-    staging on the host clock, the rest between CUDA events.
+    On CUDA, `last_split_ms` holds the last probe's time per stage: on the
+    host clock the window's reuse counts (`future_counts`), host staging
+    (`stage_host`) and the host's wait for the card (`probe_wait`, from the
+    end of the enqueue until the hit mask and the CUDA events are read);
+    the rest between CUDA events.  An enabled `tracer` gets the three host
+    stages as wall spans, from the same clock reads.
     """
 
     latency_class = "hbm"
@@ -557,23 +571,25 @@ class DeviceStoreTier(_TierBase):
         self.last_rows: torch.Tensor | None = None
         self.last_window_rows: list[torch.Tensor] | None = None
         self.last_split_ms: dict[str, float] = {}
+        self.tracer = NULL_TRACER
 
     @property
     def capacity_bytes(self) -> int:
         rows = self.store.rows
         return rows.numel() * rows.element_size()
 
-    def _future_counts(self, ids: np.ndarray) -> np.ndarray:
+    def _future_counts(self, ids: np.ndarray) -> tuple[np.ndarray, int]:
         """Per-id count of future window batches containing it: each window
         entry contributes its unique ids once, the sorted concatenation is
-        binary-searched from both sides, and the span width is the count."""
+        binary-searched from both sides, and the span width is the count.
+        Also returns how many ids the concatenation sorted."""
         if not self.window:
-            return np.zeros(len(ids), np.int32)
+            return np.zeros(len(ids), np.int32), 0
         cat = np.sort(np.concatenate(
             [np.unique(np.asarray(w)) for w in self.window]))
         lo = np.searchsorted(cat, ids, side="left")
         hi = np.searchsorted(cat, ids, side="right")
-        return (hi - lo).astype(np.int32)
+        return (hi - lo).astype(np.int32), len(cat)
 
     def probe(self, node_ids: np.ndarray) -> np.ndarray:
         if self.window_depth > 0 and self.window:
@@ -595,11 +611,12 @@ class DeviceStoreTier(_TierBase):
     def _probe_rows(self, node_ids: np.ndarray,
                     inverses: list[np.ndarray] | None = None) -> np.ndarray:
         ids = np.asarray(node_ids).astype(np.int32)
-        fc = self._future_counts(node_ids)
         events, mark = _stage_timer(self.device)
         t0 = time.perf_counter()
+        fc, n_sorted = self._future_counts(node_ids)
+        t1 = time.perf_counter()
         host_rows = self._stager.stage(node_ids)
-        t_stage = time.perf_counter() - t0
+        t2 = time.perf_counter()
         mark("start")
         staged = self._stager.to_device(host_rows)
         ids_d = torch.from_numpy(ids).to(self.device, non_blocking=True)
@@ -618,10 +635,22 @@ class DeviceStoreTier(_TierBase):
                 self.store, ids_d, staged, fc_d,
                 torch.split(inv_d, [len(i) for i in inverses]), mark=mark)
             self.last_rows, self.last_window_rows = None, rows_list
+        t3 = time.perf_counter()
         hit_mask = hits.cpu().numpy()      # waits for the whole probe
-        if events:
-            self.last_split_ms = {"stage_host": t_stage * 1e3} | _event_split(
-                events, ["start", "h2d", "cache_access", "gather", "fill"])
+        split = _event_split(
+            events, ["start", "h2d", "cache_access", "gather", "fill"]) \
+            if events else {}
+        t4 = time.perf_counter()
+        if split:
+            self.last_split_ms = {"future_counts": (t1 - t0) * 1e3,
+                                  "stage_host": (t2 - t1) * 1e3} | split \
+                | {"probe_wait": (t4 - t3) * 1e3}
+        tr = self.tracer
+        if tr.enabled:
+            tr.record("future_counts", t0, t1, ids=n_sorted)
+            tr.record("stage_host", t1, t2, rows=len(ids),
+                      bytes=host_rows.numel() * host_rows.element_size())
+            tr.record("probe_wait", t3, t4)
         return hit_mask
 
     def admit(self, node_ids: np.ndarray) -> None:
@@ -926,10 +955,13 @@ class GatherPlan:
 
 def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray,
                multiplicity: np.ndarray | None = None,
-               inverses: list[np.ndarray] | None = None) -> GatherPlan:
+               inverses: list[np.ndarray] | None = None,
+               tracer=NULL_TRACER) -> GatherPlan:
     """Fold the ordered tier stack over one batch: each tier is offered the
     requests every faster tier declined; its hits are claimed.  The last
-    tier must be a backstop (probe everything True).
+    tier must be a backstop (probe everything True).  An enabled `tracer`
+    gets one wall span `probe` per tier offered requests, with the tier's
+    name, the rows offered and the hits.
 
     With `multiplicity` the fold is a merged-window one over a window's
     UNIQUE request set: a tier with `probe_merged` (a device tier) consumes
@@ -944,13 +976,18 @@ def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray,
         idx = np.nonzero(unclaimed)[0]
         if len(idx) == 0:
             break
-        if multiplicity is not None and hasattr(tier, "probe_merged"):
-            # only the top tier sees the whole unique set the inverses index
-            hits = tier.probe_merged(node_ids[idx], multiplicity[idx],
-                                     inverses if ti == 0 else None)
-        else:
-            hits = tier.probe(node_ids[idx])
-        hits = np.asarray(hits, dtype=bool)
+        with tracer.stage("probe", cat=HOT_PATH, tier=tier.name,
+                          rows=len(idx)) as sp:
+            if multiplicity is not None and hasattr(tier, "probe_merged"):
+                # only the top tier sees the whole unique set the inverses
+                # index
+                hits = tier.probe_merged(node_ids[idx], multiplicity[idx],
+                                         inverses if ti == 0 else None)
+            else:
+                hits = tier.probe(node_ids[idx])
+            hits = np.asarray(hits, dtype=bool)
+        if tracer.enabled:
+            sp.annotate(hits=int(hits.sum()))
         took = idx[hits]
         assignment[took] = ti
         unclaimed[took] = False
@@ -985,12 +1022,13 @@ def build_plan(tiers: Sequence[Tier], node_ids: np.ndarray,
 
 def build_plan_merged(tiers: Sequence[Tier], unique_nodes: np.ndarray,
                       multiplicity: np.ndarray,
-                      inverses: list[np.ndarray]) -> GatherPlan:
+                      inverses: list[np.ndarray],
+                      tracer=NULL_TRACER) -> GatherPlan:
     """Dedup-aware fold for a merged window: `build_plan` over the unique
     set with the window multiplicity and the per-batch inverses.  Same
     partition guarantee."""
     return build_plan(tiers, unique_nodes, multiplicity=multiplicity,
-                      inverses=inverses)
+                      inverses=inverses, tracer=tracer)
 
 
 def record_tier_metrics(tiers: Sequence[Tier], registry) -> None:

@@ -10,15 +10,16 @@ defaults to :data:`NULL_TRACER`, which is bit- and price-invisible.
 from repro_torch.obs.metrics import (NULL_METRICS, Counter, Gauge,
                                      Histogram, MetricsRegistry, NullMetrics,
                                      Series)
-from repro_torch.obs.trace import (NULL_SPAN, NULL_TRACER, NullTracer, Span,
-                                   Tracer, attach_burst_spans)
+from repro_torch.obs.trace import (HOT_PATH, NULL_SPAN, NULL_TRACER,
+                                   NullTracer, Span, Tracer,
+                                   attach_burst_spans)
 from repro_torch.obs.validate import (validate_events, validate_trace,
                                       validate_tracer)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_METRICS",
     "NullMetrics", "Series",
-    "NULL_SPAN", "NULL_TRACER", "NullTracer", "Span", "Tracer",
+    "HOT_PATH", "NULL_SPAN", "NULL_TRACER", "NullTracer", "Span", "Tracer",
     "attach_burst_spans",
     "validate_events", "validate_trace", "validate_tracer",
 ]

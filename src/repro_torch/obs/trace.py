@@ -17,12 +17,21 @@ long the Python simulation itself takes.  The tracer records both:
   measure ``time.perf_counter`` around a pipeline stage; attaching the
   priced duration via ``handle.modelled(dur_s)`` records a point in the
   ``modelled_vs_measured.<stage>`` series of the registry — the gap the
-  ROADMAP wants as a tracked number.
+  ROADMAP wants as a tracked number.  Code that already read the clock
+  hands its two reads to ``tracer.record(name, t0, t1)`` instead, so no
+  stage is timed twice.  A wall span keeps its absolute ``perf_counter``
+  start and its parent, the innermost stage open on the tracer when it
+  began; ``span.self_time()`` is its duration less what its wall children
+  cover.  Spans of category :data:`HOT_PATH` are the port's own, inside
+  the data plane's hot path (the loader's sampling, admits, gather, tier
+  probes, report, pricing and feedback); the reference records none.
 
 Export is Chrome trace-event JSON (the ``traceEvents`` array form), which
 Perfetto loads directly: virtual time on pid 1, wall time on pid 2, one
 named thread (track) per pipeline / window / shard / host / tenant /
-controller lane.
+controller lane.  Wall ``ts`` are µs after the first wall span's start;
+``write`` puts that base, on the ``perf_counter`` clock, into the file's
+``otherData``, so a device trace on the same clock lines up with them.
 
 The default tracer everywhere is :data:`NULL_TRACER` — a shared no-op
 whose methods return inert singletons, so instrumented code paths cost a
@@ -45,6 +54,9 @@ PID_WALL = 2
 SPAN = "span"          # virtual interval with optional children
 INSTANT = "instant"    # zero-duration virtual event
 WALL = "wall"          # perf_counter-measured stage
+
+#: category of the port's wall spans inside the data plane's hot path
+HOT_PATH = "hot_path"
 
 
 def _jsonify(value: Any) -> Any:
@@ -71,7 +83,8 @@ class Span:
     """One node of a trace tree; durations in (virtual or wall) seconds."""
 
     __slots__ = ("name", "cat", "kind", "track", "t0", "dur",
-                 "wall_t0", "wall_dur", "parallel", "args", "children")
+                 "wall_t0", "wall_dur", "parallel", "args", "children",
+                 "parent")
 
     def __init__(self, name: str, *, cat: str = "stage", kind: str = SPAN,
                  track: str | None = None, t0: float | None = None,
@@ -88,6 +101,7 @@ class Span:
         self.parallel = parallel
         self.args = args or {}
         self.children: list[Span] = []
+        self.parent: Span | None = None     # wall spans: the enclosing stage
 
     # -- building ---------------------------------------------------------
     def child(self, name: str, dur: float = 0.0, *, cat: str = "stage",
@@ -137,6 +151,15 @@ class Span:
         for c in self.children:
             yield from c.walk()
 
+    def self_time(self) -> float:
+        """A wall span's seconds less what its wall children cover."""
+        covered, end = 0.0, float("-inf")
+        for c in sorted(self.children, key=lambda c: c.wall_t0):
+            c1 = c.wall_t0 + c.wall_dur
+            covered += max(0.0, c1 - max(c.wall_t0, end))
+            end = max(end, c1)
+        return self.wall_dur - covered
+
 
 class _NullSpan:
     """Inert span: every span-building call returns itself and records
@@ -183,6 +206,7 @@ class Tracer:
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._events: list[Span] = []      # top-level virtual spans/instants
         self._wall: list[Span] = []        # closed wall stage spans
+        self._open: list[Span] = []        # wall stages open, innermost last
         self._laid_out = False
 
     # -- building ---------------------------------------------------------
@@ -207,12 +231,14 @@ class Tracer:
               **args):
         """Wall-clock a pipeline stage; ``handle.modelled(s)`` records the
         modelled-vs-measured gap for this stage into the registry."""
-        sp = Span(name, cat=cat, kind=WALL, track=track, args=args)
+        sp = self._wall_span(name, cat, track, args)
+        self._open.append(sp)
         sp.wall_t0 = time.perf_counter()
         try:
             yield sp
         finally:
             sp.wall_dur = time.perf_counter() - sp.wall_t0
+            self._open.pop()
             self._wall.append(sp)
             if sp.dur is not None:
                 self.metrics.series(f"modelled_vs_measured.{name}").append({
@@ -220,6 +246,23 @@ class Tracer:
                     "measured_s": sp.wall_dur,
                     "gap_s": sp.wall_dur - sp.dur,
                 })
+
+    def record(self, name: str, t0: float, t1: float, *,
+               track: str = "loop", cat: str = HOT_PATH, **args) -> Span:
+        """A closed wall span from two `time.perf_counter` reads the caller
+        took, under the innermost stage open now."""
+        sp = self._wall_span(name, cat, track, args)
+        sp.wall_t0, sp.wall_dur = t0, t1 - t0
+        self._wall.append(sp)
+        return sp
+
+    def _wall_span(self, name: str, cat: str, track: str,
+                   args: dict) -> Span:
+        sp = Span(name, cat=cat, kind=WALL, track=track, args=args)
+        if self._open:
+            sp.parent = self._open[-1]
+            sp.parent.children.append(sp)
+        return sp
 
     def reset(self) -> None:
         self._events.clear()
@@ -236,6 +279,10 @@ class Tracer:
 
     def wall_spans(self) -> list[Span]:
         return list(self._wall)
+
+    def wall_base(self) -> float:
+        """The `perf_counter` time the exported wall track counts from."""
+        return min((w.wall_t0 for w in self._wall), default=0.0)
 
     def spans(self) -> Iterator[Span]:
         for root in self._events:
@@ -322,7 +369,7 @@ class Tracer:
         for ev in self._events:
             emit(ev)
 
-        base = min((w.wall_t0 for w in self._wall), default=0.0)
+        base = self.wall_base()
         for w in self._wall:
             args = {k: _jsonify(v) for k, v in w.args.items()}
             if w.dur is not None:
@@ -336,10 +383,15 @@ class Tracer:
         return events
 
     def write(self, path: str) -> list[dict]:
+        """Write the Chrome trace to `path`; with wall spans, `otherData`
+        names the clock and the base their `ts` count from."""
         events = self.chrome_events()
+        doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+        if self._wall:
+            doc["otherData"] = {"wall_clock": "time.perf_counter",
+                                "wall_base_us": self.wall_base() * 1e6}
         with open(path, "w") as f:
-            json.dump({"traceEvents": events,
-                       "displayTimeUnit": "ms"}, f)
+            json.dump(doc, f)
             f.write("\n")
         return events
 
@@ -363,6 +415,9 @@ class NullTracer(Tracer):
 
     def stage(self, name, **kw):
         return NULL_SPAN          # _NullSpan is its own context manager
+
+    def record(self, name, t0, t1, **kw):
+        return NULL_SPAN
 
     def reset(self):
         pass

@@ -4,7 +4,10 @@ tests/test_obs.py, and the span trees and metrics of both packages compared
 span for span on the same numpy inputs.  A span tree must match in names,
 tracks, cats, kinds, args, `dur` and, after layout, `t0`; a metrics
 snapshot must match apart from the measured wall clock of the
-`modelled_vs_measured.*` series, whose priced halves must match too.
+`modelled_vs_measured.*` series, whose priced halves must match too.  The
+wall spans of the reference's categories must match in order; the port's
+own hot-path spans (category `HOT_PATH`) must be exactly the documented
+set, each under its documented parent.
 
 The reference's `test_deprecated_accessors_warn` has no twin: the port has
 no deprecated `last_shard_burst` / `last_host_burst` accessors."""
@@ -13,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import json  # noqa: E402
+import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -24,12 +28,13 @@ from repro.obs import Tracer as JTracer  # noqa: E402
 from repro.obs import attach_burst_spans as j_attach  # noqa: E402
 from repro_torch.core import GIDSDataLoader, LoaderConfig  # noqa: E402
 from repro_torch.core.dataplane import DataPlaneSpec  # noqa: E402
+from repro_torch.core.pipeline import HOT_PATH_SPANS  # noqa: E402
 from repro_torch.graph.synthetic import rmat_graph  # noqa: E402
 from repro_torch.obs import (NULL_METRICS, NULL_TRACER,  # noqa: E402
                              Counter, Gauge, Histogram, MetricsRegistry,
                              Tracer, attach_burst_spans, validate_events,
                              validate_trace, validate_tracer)
-from repro_torch.obs.trace import _jsonify  # noqa: E402
+from repro_torch.obs.trace import HOT_PATH, NULL_SPAN, _jsonify  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -66,9 +71,44 @@ def span_rows(tracer) -> list[tuple]:
             for sp in tracer.spans()]
 
 
+#: the port's hot-path spans and the stages each may open under, as the
+#: loader documents them
+DOCUMENTED_HOT_PATH = {
+    "sample_blocks": ("plan_next",),
+    "admit": ("plan_next", "execute_window"),
+    "merge": ("execute_window",),
+    "gather": ("execute", "execute_window"),
+    "probe": ("gather",),
+    "future_counts": ("probe",),
+    "access": ("probe",),
+    "stage_host": ("probe",),
+    "probe_wait": ("probe",),
+    "report": ("execute", "execute_window"),
+    "price": ("execute", "execute_window"),
+    "feedback": ("execute", "execute_window"),
+}
+
+
+def assert_hot_path_spans(ttr) -> None:
+    """Every wall span of category HOT_PATH is a documented one under its
+    documented parent; no span of the reference's categories opens under
+    one of them."""
+    assert HOT_PATH_SPANS == DOCUMENTED_HOT_PATH
+    for w in ttr.wall_spans():
+        if w.cat == HOT_PATH:
+            assert w.name in DOCUMENTED_HOT_PATH, w.name
+            assert w.parent is not None \
+                and w.parent.name in DOCUMENTED_HOT_PATH[w.name], \
+                (w.name, w.parent and w.parent.name)
+        else:
+            assert w.parent is None or w.parent.cat != HOT_PATH, w.name
+
+
 def assert_same_trace(jtr, ttr) -> None:
     """Span trees equal span for span; metrics equal apart from the wall
-    clock; the exported virtual events equal event for event."""
+    clock; the wall spans of the reference's categories equal in order,
+    the port's own hot-path spans as documented; the exported virtual
+    events equal event for event."""
     assert span_rows(jtr) == span_rows(ttr)
     js, ts = jtr.metrics.snapshot(), ttr.metrics.snapshot()
     assert js.keys() == ts.keys()
@@ -78,10 +118,11 @@ def assert_same_trace(jtr, ttr) -> None:
                 == [p["modelled_s"] for p in ts[k]["points"]], k
         else:
             assert js[k] == ts[k], k
-    assert [w.name for w in jtr.wall_spans()] \
-        == [w.name for w in ttr.wall_spans()]
-    assert [w.dur for w in jtr.wall_spans()] \
-        == [w.dur for w in ttr.wall_spans()]
+    assert HOT_PATH not in {w.cat for w in jtr.wall_spans()}
+    ref_cats = [w for w in ttr.wall_spans() if w.cat != HOT_PATH]
+    assert [w.name for w in jtr.wall_spans()] == [w.name for w in ref_cats]
+    assert [w.dur for w in jtr.wall_spans()] == [w.dur for w in ref_cats]
+    assert_hot_path_spans(ttr)
 
     def virtual(events):
         return [e for e in events if e["pid"] == 1]
@@ -230,6 +271,136 @@ def test_null_tracer_records_nothing():
     assert s.child("x", 1.0) is s
     with NULL_TRACER.stage("s") as sp:
         sp.modelled(1.0)
+    assert NULL_TRACER.chrome_events() == []
+    assert NULL_TRACER.metrics.snapshot() == {}
+
+
+def test_wall_spans_nest_and_self_time():
+    """A stage opened inside another, and spans recorded from clock reads
+    the caller took, record the innermost open stage as their parent; a
+    span's self time is its duration less what its children cover (their
+    union where they overlap)."""
+    tr = Tracer()
+    with tr.stage("outer", cat="stage") as outer:
+        with tr.stage("inner", cat=HOT_PATH) as inner:
+            t = time.perf_counter()
+            a = tr.record("a", t, t + 2e-3, rows=3)
+            b = tr.record("b", t + 1e-3, t + 4e-3)
+        c = tr.record("c", t + 5e-3, t + 6e-3)
+    top = tr.record("top", t, t + 1.0)
+    assert inner.parent is outer and outer.parent is None
+    assert a.parent is inner and b.parent is inner and c.parent is outer
+    assert top.parent is None
+    assert outer.children == [inner, c] and inner.children == [a, b]
+    assert a.cat == HOT_PATH and a.args == {"rows": 3}
+    assert a.wall_t0 == t and a.wall_dur == pytest.approx(2e-3)
+    assert inner.self_time() == pytest.approx(inner.wall_dur - 4e-3)
+    assert outer.self_time() == pytest.approx(
+        outer.wall_dur - inner.wall_dur - c.wall_dur)
+    assert a.self_time() == a.wall_dur
+    # closed in order: children before their parents
+    assert [w.name for w in tr.wall_spans()] \
+        == ["a", "b", "inner", "c", "outer", "top"]
+    assert tr._open == []
+
+
+def test_exported_wall_ts_maps_back_to_perf_counter(tmp_path):
+    """The written trace names the clock and base its wall `ts` count from:
+    base + ts is each span's `perf_counter` start."""
+    tr = Tracer()
+    with tr.stage("plan_next"):
+        with tr.stage("sample_blocks", cat=HOT_PATH):
+            pass
+    t = time.perf_counter()
+    tr.record("probe_wait", t, t + 1e-3)
+    path = tmp_path / "trace.json"
+    tr.write(str(path))
+    doc = json.loads(path.read_text())
+    assert validate_trace(doc) == []
+    other = doc["otherData"]
+    assert other["wall_clock"] == "time.perf_counter"
+    assert other["wall_base_us"] == tr.wall_base() * 1e6
+    wall = [e for e in doc["traceEvents"] if e["pid"] == 2 and e["ph"] == "X"]
+    assert [e["name"] for e in wall] \
+        == [w.name for w in tr.wall_spans()]
+    for e, w in zip(wall, tr.wall_spans()):
+        assert (other["wall_base_us"] + e["ts"]) * 1e-6 \
+            == pytest.approx(w.wall_t0, abs=1e-9)
+        assert e["dur"] == pytest.approx(w.wall_dur * 1e6)
+    assert {e["cat"] for e in wall} == {"stage", HOT_PATH}
+
+
+def _device_loaders(gf, sampler, tracer=None, jtracer=None):
+    jg, tg, feats = gf
+    common = dict(batch_size=128, fanouts=(5, 5), cache_lines=2048,
+                  window_depth=4, data_plane="gids-device", sampler=sampler,
+                  ladies_layer_sizes=(256, 256))
+    jl = JLoader(jg, feats, JConfig(**common), tracer=jtracer)
+    tl = GIDSDataLoader(tg, feats, LoaderConfig(**common), device="cpu",
+                        tracer=tracer)
+    return jl, tl
+
+
+@pytest.mark.parametrize("sampler", ["neighbor", "ladies"])
+def test_device_tier_spans_under_execute(graphs_and_feats, sampler):
+    """On a `gids-device` loader the device tier's host stages are spans
+    under its `probe`, under `gather`, under `execute`; batches and priced
+    floats are bit-identical with and without a tracer, and the traced
+    run's trees, metrics and reference-category wall spans equal the
+    reference's."""
+    _, plain = _device_loaders(graphs_and_feats, sampler)
+    jtr, tr = JTracer(), Tracer()
+    ref, _ = _device_loaders(graphs_and_feats, sampler, jtracer=jtr)
+    _, traced = _device_loaders(graphs_and_feats, sampler, tracer=tr)
+    for _ in range(6):
+        a, b = plain.next_batch(), traced.next_batch()
+        ref.next_batch()
+        assert a.prep_time_s == b.prep_time_s
+        assert a.report == b.report
+        np.testing.assert_array_equal(a.blocks.all_nodes, b.blocks.all_nodes)
+        assert torch.equal(a.features, b.features)
+    assert validate_trace(tr) == []
+    assert_same_trace(jtr, tr)
+    tier = traced.store.tiers[0]
+    assert tier.tracer is tr and traced.store.tracer is tr
+    assert plain.store.tiers[0].tracer is NULL_TRACER
+    executes = [w for w in tr.wall_spans() if w.name == "execute"]
+    assert len(executes) == 6
+    for ex in executes:
+        assert [c.name for c in ex.children] \
+            == ["gather", "report", "price", "feedback"]
+        gather = ex.children[0]
+        probes = gather.children
+        assert [p.args["tier"] for p in probes] \
+            == [t.name for t in traced.store.tiers][:len(probes)]
+        top = probes[0]
+        assert [c.name for c in top.children] \
+            == ["future_counts", "stage_host", "probe_wait"]
+        assert top.args["rows"] == top.children[1].args["rows"]
+        assert top.children[1].args["bytes"] \
+            == top.args["rows"] * traced.store.feature_dim * 4
+        assert 0 <= top.args["hits"] <= top.args["rows"]
+        assert ex.self_time() >= 0.0 and gather.self_time() >= 0.0
+    # the window of future batches was full from the first probe on
+    assert all(w.args["ids"] > 0 for w in tr.wall_spans()
+               if w.name == "future_counts")
+    plans = [w for w in tr.wall_spans() if w.name == "plan_next"]
+    assert {c.name for p in plans for c in p.children} \
+        == {"sample_blocks", "admit"}
+
+
+def test_null_tracer_records_nothing_on_the_hot_path(graphs_and_feats):
+    """A loader without a tracer hands its store and tiers the shared no-op
+    tracer, which keeps nothing of their spans."""
+    _, dl = _device_loaders(graphs_and_feats, "neighbor")
+    for _ in range(3):
+        dl.next_batch()
+    assert dl.tracer is NULL_TRACER and dl.store.tracer is NULL_TRACER
+    assert all(getattr(t, "tracer", NULL_TRACER) is NULL_TRACER
+               for t in dl.store.tiers)
+    assert NULL_TRACER.wall_spans() == [] and NULL_TRACER.roots() == []
+    assert NULL_TRACER.record("probe_wait", 0.0, 1.0, rows=1) is NULL_SPAN
+    assert NULL_TRACER.wall_spans() == []
     assert NULL_TRACER.chrome_events() == []
     assert NULL_TRACER.metrics.snapshot() == {}
 

@@ -26,6 +26,7 @@ from repro_torch.core import (SAMSUNG_980PRO, GIDSDataLoader,  # noqa: E402
                               LoaderConfig)
 from repro_torch.graph.synthetic import rmat_graph  # noqa: E402
 from repro_torch.obs import Tracer, validate_trace  # noqa: E402
+from repro_torch.obs.trace import HOT_PATH  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 EPS = 1e-9
@@ -236,13 +237,18 @@ def _fig_trace_headline(iters=16):
     err = max(err, tracer.max_reconcile_error())
     problems = validate_trace(tracer)
     snap = tracer.metrics.snapshot()
+    events = tracer.chrome_events()
     return {
         "tracer_bit_invisible": invisible,
         "spans_reconciled": len(roots) == len(traced) and err <= 1e-9,
         "max_reconcile_error": err,
         "trace_valid": not problems,
         "n_trace_problems": len(problems),
-        "n_trace_events": len(tracer.chrome_events()),
+        # the events of the reference's categories: the port's own
+        # hot-path wall spans are counted apart
+        "n_trace_events": sum(1 for e in events if e.get("cat") != HOT_PATH),
+        "n_hot_path_events": sum(1 for e in events
+                                 if e.get("cat") == HOT_PATH),
         "n_batch_spans": len(roots),
         "n_metric_keys": len(snap),
         "modelled_vs_measured_points": sum(
@@ -274,3 +280,4 @@ def test_fig_trace_gates_hold(fig_trace_pair):
     port, _ = fig_trace_pair
     assert port["tracer_bit_invisible"] and port["spans_reconciled"]
     assert port["trace_valid"] and port["n_trace_events"] == 117
+    assert port["n_hot_path_events"] > 0

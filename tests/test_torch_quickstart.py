@@ -1,9 +1,13 @@
 """`examples/quickstart_torch.py` on the CPU against the JAX package's
 `examples/quickstart.py`: every line the two scripts print is equal, but
 the wall-clock column of the observability section, which measures this
-machine.  The port's script runs with JAX and the JAX package
+machine.  The port's trace also holds its own hot-path wall spans, which
+the reference does not record: its event count is the reference's plus
+those.  The port's script runs with JAX and the JAX package
 unimportable."""
+import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -38,6 +42,15 @@ def _priced(text: str) -> list[str]:
             if not line.rstrip().endswith("spans)")]
 
 
+def _without_hot_path(text: str, trace: Path) -> tuple[str, int]:
+    """`text` with the printed trace event count less the written trace's
+    hot-path spans (category "hot_path"), and their number."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    n = sum(1 for e in events if e.get("cat") == "hot_path")
+    return re.sub(r"\((\d+) events;",
+                  lambda m: f"({int(m.group(1)) - n} events;", text), n
+
+
 def test_quickstart_twin_prints_the_reference_numbers(tmp_path):
     """Both scripts run side by side; every priced line (tier splits, prep
     and exposed prep, shard and host telemetry, migrations, the topology
@@ -59,6 +72,8 @@ def test_quickstart_twin_prints_the_reference_numbers(tmp_path):
         port.kill()
     assert ref.returncode == 0, want_err[-2000:]
     assert port.returncode == 0, got_err[-2000:]
+    got, n_hot_path = _without_hot_path(got, tmp_path / "port" / "trace.json")
+    assert n_hot_path > 0
     assert _priced(got) == _priced(want)
     assert len(_priced(got)) > 40
     walls = [line for line in got.splitlines() if line.rstrip()
