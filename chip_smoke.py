@@ -44,7 +44,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    with the whole store call's host time beside the kernel's, and a bound
    that counts the cold words' 32-byte sectors at the peak PCIe Gen5 x16
    rate (the pinned H2D copy rate the run measures is printed beside it,
-   `pcie_h2d_gbps`).  Times
+   `pcie_h2d_gbps`).  tiered_gather, tiered_gather_unique and
+   store_fill also run as the device tier calls them (MAP_GATHER_CASES,
+   MAP_UNIQUE_CASES, MAP_FILL_CASE: ~97k requests of 1024-d rows, ~74.5 %
+   of them read from a compacted staged buffer through its int32 map),
+   each exact against its plain version given the same map.  Times
    are CUDA-event medians of 20 launches after warm-up, with a 256 MB
    buffer written and a short device sleep before each launch, so that
    every launch starts from a cold L2 and the host's enqueue time is
@@ -53,10 +57,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    examples/train_gnn_igb_torch.py (100k-node RMAT graph, 1024-d features,
    hidden 4096, batch 512, fanouts (10, 5)) through the `gids-device` data
    plane, for STEPS steps.  Every batch's features must equal the host
-   features of its nodes bit for bit, step 0's loss must agree with the
-   loss computed through the plain versions to rtol 1e-5, every loss must
-   be finite, the cache must hit, and every kernel's launch count over the
-   run must be positive.
+   features of its nodes bit for bit; at the PARITY steps (the cold first,
+   a warm one whose hits the row store serves) every `tiered_gather` and
+   `store_fill` call must equal its plain version on the same inputs,
+   staged map included, the map must stage no hit, and the loss must
+   agree with the loss computed through the plain versions to rtol 1e-5;
+   every loss must be finite, the cache must hit, and every kernel's
+   launch count over the run must be positive.  Each step prints the
+   device tier's split and counts (staged rows, bytes copied).
 4. The second main path: the same model and graph through
    `DataPlaneSpec.preset("gids-device", merge_execute=True, topology=True)`
    for MERGED_STEPS steps (two merged windows of 8 batches): each window's
@@ -65,8 +73,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    words through the tiered edge-page store with one `frontier_read`
    launch (hot pages on the card, the rest read in place from the
    adjacency in pinned host memory).  Every batch's features must equal the host features bit
-   for bit, every hop's words must equal `graph.indices[pos]`, step 0's
-   loss must agree with the plain versions' to rtol 1e-5, every loss must
+   for bit, every hop's words must equal `graph.indices[pos]`; at the
+   first step of each window (MERGED_PARITY: the first cold, the second
+   warm) every expansion and the fill must equal their plain versions on
+   the same inputs, staged map included, and the loss the plain
+   versions' to rtol 1e-5; every loss must
    be finite, every batch must carry priced sampling time, each of the
    path's kernels must be launched, and `frontier_read` exactly once per
    hop.  Each window prints the host time of its `frontier_gather` calls
@@ -324,12 +335,22 @@ phase 3 again under `torch.profiler`: the device operations and the cache
 kernels' launches and device ms per step.  Run it on two trees in turns
 (A, B, B, A) in one call to compare them on one card.
 
+    python3 chip_smoke.py --tier-ab [TREE]
+
+builds the kernels of TREE (as --cache-ab) and runs phases 3 and 4
+against its package: each step's and each merged window's device-tier
+split and counts (rows, hits, staged rows, bytes copied, where the tree's
+tier keeps them), the launches, and every row kernel held against its
+plain version on the path's inputs at the PARITY and MERGED_PARITY steps.
+Run it on two trees in turns in one call to compare them on one card.
+
 The script imports torch, numpy and the port (src/repro_torch, or
 TREE/src with --cache-ab) only.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import json
 import os
@@ -345,6 +366,11 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 STEPS = 8
 MERGED_STEPS = 16
+#: phase 3's steps whose row kernels are held against their plain versions
+#: on the path's inputs: the cold first and a warm one; phase 4's: the
+#: first step of each of its two merged windows of 8 batches
+PARITY = (0, STEPS - 1)
+MERGED_PARITY = (0, 8)
 #: the full width of examples/train_gnn_igb_torch.py, where phases 3 and 4
 #: train, and the card they train on
 FULL = dict(nodes=100_000, dim=1024, hidden=4096, batch=512,
@@ -548,6 +574,40 @@ def kernel_segment_mean(torch, timer, gen):
     return summary(main)
 
 
+#: the device tier's shapes at the benchmark cells' widths: ~97k requests a
+#: step, about a quarter served from a 32,768-line row store of 1024-d rows
+#: and the rest (MAP_MISS) read from the compacted staged buffer through
+#: its map; then a ragged bf16 row.  tiered_gather: (B, L, D, dtype);
+#: tiered_gather_unique: (U, L, D, N, dtype), N rows of one batch;
+#: store_fill: (L, B, D)
+MAP_MISS = 0.745
+MAP_GATHER_CASES = ((97_000, 32_768, 1024, "float32"),
+                    (1001, 512, 1001, "bfloat16"))
+MAP_UNIQUE_CASES = ((97_000, 32_768, 1024, 48_500, "float32"),
+                    (28_000, 16_384, 1000, 8191, "bfloat16"))
+MAP_FILL_CASE = (32_768, 97_000, 1024)
+
+
+def _served_slots(torch, gen, B, L):
+    """(B,) int32 serve slots: a row-store line for about 1 - MAP_MISS of
+    the requests, -1 (read from the staged buffer) for the rest."""
+    slots = torch.randint(0, L, (B,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    miss = torch.rand((B,), generator=gen, device="cuda") < MAP_MISS
+    return slots.masked_fill(miss, -1)
+
+
+def _compacted(torch, gen, slots, D, dtype):
+    """(staged, staged_map) as the device tier hands them to the kernels:
+    one random row for each request with slot -1, compacted in request
+    order, and each request's row in that buffer (-1 elsewhere)."""
+    need = slots < 0
+    staged = torch.randn((int(need.sum()), D), generator=gen,
+                         device="cuda").to(dtype)
+    order = need.to(torch.int32).cumsum(0, dtype=torch.int32) - 1
+    return staged, torch.where(need, order, -1).to(torch.int32)
+
+
 def kernel_tiered_gather(torch, timer, gen):
     """B = 8192 requests, about half hits, over a 16384-line row store of
     1024-d f32 rows; then ragged widths and an odd B, exact."""
@@ -578,6 +638,26 @@ def kernel_tiered_gather(torch, timer, gen):
                "library_ms": None, **bound(nbytes)}
         emit(row)
         main = main or summary([row])        # the first is the main path's
+    for B, L, D, dtype in MAP_GATHER_CASES:
+        dtype = getattr(torch, dtype)
+        cache = torch.randn((L, D), generator=gen, device="cuda").to(dtype)
+        slots = _served_slots(torch, gen, B, L)
+        staged, staged_map = _compacted(torch, gen, slots, D, dtype)
+        out = ops.tiered_gather(slots, cache, staged, staged_map)
+        want = ref.tiered_gather_ref(slots, cache, staged, staged_map)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want),
+              f"tiered_gather with a staged map ({B},{L},{D}) {dtype}")
+        M = staged.shape[0]
+        nbytes = 2 * B * D * cache.element_size() + B * 4 + M * 4
+        emit({"phase": "kernel", "name": "tiered_gather",
+              "dtype": str(dtype).removeprefix("torch."), "staged_map": True,
+              "shape": [B, L, D], "staged_rows": M, "max_abs_err": 0.0,
+              "kernel_ms": timer(lambda: ops.tiered_gather(
+                  slots, cache, staged, staged_map)),
+              "plain_ms": timer(lambda: ref.tiered_gather_ref(
+                  slots, cache, staged, staged_map)),
+              "library_ms": None, **bound(nbytes)})
     return main
 
 
@@ -616,6 +696,31 @@ def kernel_tiered_gather_unique(torch, timer, gen):
                "library_ms": None, **bound(nbytes)}
         emit(row)
         main = main or summary([row])        # the first is the main path's
+    for U, L, D, N, dtype in MAP_UNIQUE_CASES:
+        dtype = getattr(torch, dtype)
+        cache = torch.randn((L, D), generator=gen, device="cuda").to(dtype)
+        slots = _served_slots(torch, gen, U, L)
+        staged, staged_map = _compacted(torch, gen, slots, D, dtype)
+        inverse = torch.randperm(U, generator=gen, device="cuda")[:N] \
+            .to(torch.int32)
+        out = ops.tiered_gather_unique(slots, cache, staged, inverse,
+                                       staged_map)
+        want = ref.tiered_gather_unique_ref(slots, cache, staged, inverse,
+                                            staged_map)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"tiered_gather_unique with a staged "
+                                      f"map ({U},{L},{D},{N}) {dtype}")
+        from_staged = int((slots[inverse.long()] < 0).sum())
+        nbytes = 2 * N * D * cache.element_size() + 8 * N + 4 * from_staged
+        emit({"phase": "kernel", "name": "tiered_gather_unique",
+              "dtype": str(dtype).removeprefix("torch."), "staged_map": True,
+              "shape": [U, L, D, N], "staged_rows": staged.shape[0],
+              "max_abs_err": 0.0,
+              "kernel_ms": timer(lambda: ops.tiered_gather_unique(
+                  slots, cache, staged, inverse, staged_map)),
+              "plain_ms": timer(lambda: ref.tiered_gather_unique_ref(
+                  slots, cache, staged, inverse, staged_map)),
+              "library_ms": None, **bound(nbytes)})
     return main
 
 
@@ -834,6 +939,34 @@ def kernel_store_fill(torch, timer, gen):
                setup=lambda: (rows.clone(),)),
            **bound(nbytes)}
     emit(row)
+    # as the device tier fills: fillers are requests read from the
+    # compacted staged buffer, found through the map
+    L, B, D = MAP_FILL_CASE
+    slots = _served_slots(torch, gen, B, L)
+    staged, staged_map = _compacted(torch, gen, slots, D, torch.float32)
+    needed = (slots < 0).nonzero()[:, 0].to(torch.int32)
+    pick = torch.randint(0, len(needed), (L,), generator=gen, device="cuda")
+    keep = torch.rand((L,), generator=gen, device="cuda") >= 0.3
+    last_filler = needed[pick].masked_fill(keep, -1)
+    got = torch.randn((L, D), generator=gen, device="cuda")
+    want = got.clone()
+    ops.store_fill(got, last_filler, staged, staged_map)
+    ref.store_fill_ref(want, last_filler, staged, staged_map)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "store_fill with a staged map")
+    n_filled = int((last_filler >= 0).sum())
+    emit({"phase": "kernel", "name": "store_fill", "dtype": "float32",
+          "staged_map": True, "shape": [L, B, D],
+          "staged_rows": staged.shape[0], "filled": n_filled,
+          "max_abs_err": 0.0,
+          "kernel_ms": timer(lambda r: ops.store_fill(r, last_filler, staged,
+                                                      staged_map),
+                             setup=lambda: (want.clone(),)),
+          "plain_ms": timer(lambda r: ref.store_fill_ref(
+              r, last_filler, staged, staged_map),
+              setup=lambda: (want.clone(),)),
+          "library_ms": None,
+          **bound(2 * n_filled * D * 4 + L * 4 + n_filled * 4)})
     return summary([row])
 
 
@@ -1124,6 +1257,23 @@ def cache_ab(torch, np, tree: Path) -> int:
           "device_ops_per_step": dev["device_ops"] / STEPS,
           "cache_kernels_per_step": {k: n for k, (n, _) in cache.items()},
           "cache_kernel_ms_per_step": {k: ms for k, (_, ms) in cache.items()}})
+    return 0
+
+
+def tier_ab(torch, np, tree: Path) -> int:
+    """One side of an A/B of the device tier (`--tier-ab TREE`): builds
+    TREE's kernels and runs phases 3 and 4 against its package; their
+    lines carry each probe's split and, where the tree's tier keeps them,
+    its counts (rows, hits, staged rows, bytes copied), and their summaries
+    the launches and the counts summed.  Returns 0."""
+    import repro_torch
+    check(Path(repro_torch.__file__).resolve().is_relative_to(
+        tree.resolve()), f"repro_torch imported from {repro_torch.__file__}")
+    card_and_build(torch)
+    main_path(torch, np)
+    torch.cuda.empty_cache()
+    merged_topology_path(torch, np)
+    emit({"phase": "tier_ab", "tree": str(tree), "card": card_line()})
     return 0
 
 
@@ -1765,6 +1915,76 @@ def workload(torch, np):
     return graph, labels_all, feats, cfg, gnn
 
 
+#: the row kernels of the device tier's path, each held against its plain
+#: version on the path's own inputs at PARITY steps
+ROW_KERNELS = ("tiered_gather", "tiered_gather_unique", "store_fill")
+
+
+@contextlib.contextmanager
+def _checked_on_path(torch, what: str):
+    """Every call of ROW_KERNELS inside the block runs beside its plain
+    version (`kernels.ref`) on the same inputs, the staged map included
+    where the path passes one, and must equal it bit for bit.  Yields the
+    list of calls: kernel, requests, requests served from the row store,
+    staged rows, whether a map came, the lines filled, and the plain
+    gathers' outputs (`plain`, for a loss parity)."""
+    from repro_torch.kernels import ops, ref
+    calls, real = [], {n: getattr(ops, n) for n in ROW_KERNELS}
+
+    def record(name, slots, staged, with_map, **extra):
+        calls.append({"kernel": name, "staged_rows": int(staged.shape[0]),
+                      "map": with_map, **extra})
+        if with_map and slots is not None:
+            # a map holds only the rows the card reads: no hit is staged
+            check(calls[-1]["staged_rows"]
+                  == calls[-1]["requests"] - calls[-1]["from_store"],
+                  f"{what}: {name} got {calls[-1]['staged_rows']} staged "
+                  f"rows for {calls[-1]['requests']} requests of which "
+                  f"{calls[-1]['from_store']} are served from the store")
+
+    def gather(name, n_args):
+        def run(slots, cache, staged, *rest):
+            out = real[name](slots, cache, staged, *rest)
+            want = getattr(ref, name + "_ref")(slots, cache, staged, *rest)
+            check(torch.equal(out, want), f"{what}: {name} call "
+                  f"{len(calls)} differs from its plain version")
+            record(name, slots, staged, len(rest) == n_args,
+                   requests=int(slots.numel()),
+                   from_store=int((slots >= 0).sum()), out_rows=len(want),
+                   plain=want)
+            return out
+        return run
+
+    def fill(rows, last_filler, staged, *rest):
+        want = rows.clone()
+        real["store_fill"](rows, last_filler, staged, *rest)
+        ref.store_fill_ref(want, last_filler, staged, *rest)
+        check(torch.equal(rows, want), f"{what}: store_fill call "
+              f"{len(calls)} differs from its plain version")
+        record("store_fill", None, staged, len(rest) == 1,
+               filled=int((last_filler >= 0).sum()))
+
+    with mock.patch.multiple(
+            ops, tiered_gather=gather("tiered_gather", 1),
+            tiered_gather_unique=gather("tiered_gather_unique", 2),
+            store_fill=fill):
+        yield calls
+
+
+def _tier_totals(counts) -> dict:
+    """The device tier's `last_counts`, summed over probes (empty where
+    the tier keeps none)."""
+    out: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _parity_line(calls) -> list:
+    return [{k: v for k, v in c.items() if k != "plain"} for c in calls]
+
+
 def main_path(torch, np):
     from repro_torch.core import INTEL_OPTANE, GIDSDataLoader, LoaderConfig
     from repro_torch.kernels import _build, ops, ref
@@ -1794,14 +2014,18 @@ def main_path(torch, np):
         t_start = time.perf_counter()
         plan = loader.plan_next()
         t_planned = time.perf_counter()
-        batch = loader.execute(plan)          # ends synchronised
+        with (_checked_on_path(torch, f"step {step}") if step in PARITY
+              else contextlib.nullcontext([])) as calls:
+            batch = loader.execute(plan)      # ends synchronised
         t_executed = time.perf_counter()
         split = dict(tier.last_split_ms)
         nodes = torch.from_numpy(batch.blocks.all_nodes).cuda()
         hi = [torch.from_numpy(i).cuda() for i in hop_indices(batch.blocks)]
         y = labels_dev[torch.from_numpy(batch.blocks.seeds).cuda()]
-        if step == 0:
-            # launches made to compare with the plain versions do not count
+        if step in PARITY:
+            # step 0 runs cold (every row staged), the last step warm (hits
+            # served from the row store, only the misses staged); launches
+            # made to compare with the plain versions do not count
             saved = dict(_build.LAUNCHES)
             with torch.no_grad():
                 loss_kernel = gnn.loss(batch.features, hi, y).item()
@@ -1810,10 +2034,16 @@ def main_path(torch, np):
                     loss_plain = gnn.loss(batch.features, hi, y).item()
             _build.LAUNCHES.update(saved)
             rel = abs(loss_kernel - loss_plain) / abs(loss_plain)
-            emit({"phase": "step0_parity", "loss_kernel": loss_kernel,
-                  "loss_plain": loss_plain, "rel_err": rel})
-            check(rel <= 1e-5, f"step-0 loss {loss_kernel} vs plain "
+            emit({"phase": "step_parity", "step": step,
+                  "loss_kernel": loss_kernel, "loss_plain": loss_plain,
+                  "rel_err": rel, "calls": _parity_line(calls)})
+            check(rel <= 1e-5, f"step-{step} loss {loss_kernel} vs plain "
                                f"{loss_plain}")
+            kinds = {c["kernel"] for c in calls}
+            check({"tiered_gather", "store_fill"} <= kinds,
+                  f"step {step}: the row kernels ran {sorted(kinds)}")
+            check(step == 0 or any(c.get("from_store", 0) for c in calls),
+                  f"step {step}: no request served from the row store")
         torch.cuda.synchronize()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
@@ -1832,6 +2062,7 @@ def main_path(torch, np):
         steps.append({"phase": "step", "step": step, "loss": loss_v,
               "unique_rows": int(len(batch.blocks.all_nodes)),
               "tier_counts": list(batch.report.tier_counts),
+              "device_tier": dict(getattr(tier, "last_counts", {})),
               "wall_ms": (t_end - t_start) * 1e3,
               "sample_ms": (t_planned - t_start) * 1e3,
               "execute_ms": (t_executed - t_planned) * 1e3,
@@ -1842,13 +2073,15 @@ def main_path(torch, np):
         emit(steps[-1])
     check(hits > 0, "the device cache never hit")
     launches = dict(_build.LAUNCHES)
-    # step 0 pays the first cuBLAS call and the parity check
-    median = {k: statistics.median(s[k] for s in steps[1:])
-              for k, v in steps[1].items()
+    # step 0 pays the first cuBLAS call, and the PARITY steps the checks
+    timed = [s for s in steps if s["step"] not in PARITY]
+    median = {k: statistics.median(s[k] for s in timed)
+              for k, v in timed[0].items()
               if k.endswith(("_ms", "_s")) and isinstance(v, float)}
     emit({"phase": "main_path", "plane": "gids-device", "steps": STEPS,
-          "launches": launches,
-          "median_of_steps_1_on": median,
+          "launches": launches, "hit_ratio": hits / max(hits + misses, 1),
+          "device_tier": _tier_totals(s["device_tier"] for s in steps),
+          "median_of_unchecked_steps": median,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     for name in PATH_KERNELS["gids-device"]:
         check(launches[name] > 0,
@@ -1902,18 +2135,6 @@ def merged_topology_path(torch, np):
         hops["reads"] += len(read_pos)
         return hop_report(read_pos, **kw)
 
-    # the first batch's rows also through the plain expansion on the same
-    # inputs (not a launch), for the step-0 loss parity
-    plain0 = []
-    gather_unique = ops.tiered_gather_unique
-
-    def gather_unique_and_plain(slots, cache, staged, inverse):
-        out = gather_unique(slots, cache, staged, inverse)
-        if not plain0:
-            plain0.append(ref.tiered_gather_unique_ref(slots, cache, staged,
-                                                       inverse))
-        return out
-
     # host clock around each window's two stages
     windows = []
     plan_window, execute_window = loader.plan_window, loader.execute_window
@@ -1945,17 +2166,19 @@ def merged_topology_path(torch, np):
         for step in range(MERGED_STEPS):
             n_windows = len(windows)
             t_start = time.perf_counter()
-            if step == 0:
-                with mock.patch.object(ops, "tiered_gather_unique",
-                                       gather_unique_and_plain):
-                    batch = loader.next_batch()
-            else:
+            # each window's first step runs its probe: the first window's
+            # cold, the second's warm; there every expansion and the fill
+            # are held against their plain versions on the path's inputs
+            with (_checked_on_path(torch, f"merged step {step}")
+                  if step in MERGED_PARITY else contextlib.nullcontext([])) \
+                    as calls:
                 batch = loader.next_batch()
             t_batch = time.perf_counter()
             if len(windows) > n_windows:
                 plan = loader.store.last_plan
                 w = windows[-1]
                 w.update({f"{k}_ms": v for k, v in tier.last_split_ms.items()})
+                w["device_tier"] = dict(getattr(tier, "last_counts", {}))
                 report = batch.report
                 w.update({"phase": "window", "window": len(windows) - 1,
                           "batches": report.window_batches,
@@ -1969,25 +2192,34 @@ def merged_topology_path(torch, np):
             nodes = torch.from_numpy(batch.blocks.all_nodes).to(DEVICE)
             hi = [torch.from_numpy(i).to(DEVICE) for i in hop_indices(batch.blocks)]
             y = labels_dev[torch.from_numpy(batch.blocks.seeds).to(DEVICE)]
-            if step == 0:
+            if step in MERGED_PARITY:
                 saved = dict(_build.LAUNCHES)
-                check(len(plain0) == 1 and torch.equal(plain0[0],
-                                                       batch.features),
-                      "step 0: tiered_gather_unique differs from its plain "
-                      "version on the path")
+                expansions = [c for c in calls
+                              if c["kernel"] == "tiered_gather_unique"]
+                check(len(expansions) == batch.report.window_batches
+                      and any(c["kernel"] == "store_fill" for c in calls),
+                      f"merged step {step}: the row kernels ran "
+                      f"{[c['kernel'] for c in calls]}")
+                check(step == 0 or any(c["from_store"] for c in expansions),
+                      f"merged step {step}: no row served from the store")
+                plain = expansions[0]["plain"]
+                check(torch.equal(plain, batch.features),
+                      f"merged step {step}: the batch is not its window's "
+                      "first expansion")
                 with torch.no_grad():
                     loss_kernel = gnn.loss(batch.features, hi, y).item()
                     with mock.patch.object(ops, "segment_mean",
                                            ref.segment_mean_ref):
-                        loss_plain = gnn.loss(plain0[0], hi, y).item()
+                        loss_plain = gnn.loss(plain, hi, y).item()
                 _build.LAUNCHES.update(saved)
-                plain0.clear()
                 rel = abs(loss_kernel - loss_plain) / abs(loss_plain)
-                emit({"phase": "step0_parity", "plane": MERGED_PLANE,
-                      "loss_kernel": loss_kernel, "loss_plain": loss_plain,
-                      "rel_err": rel})
-                check(rel <= 1e-5, f"merged step-0 loss {loss_kernel} vs "
-                                   f"plain {loss_plain}")
+                emit({"phase": "step_parity", "plane": MERGED_PLANE,
+                      "step": step, "loss_kernel": loss_kernel,
+                      "loss_plain": loss_plain, "rel_err": rel,
+                      "calls": _parity_line(calls)})
+                del calls[:], plain
+                check(rel <= 1e-5, f"merged step-{step} loss {loss_kernel} "
+                                   f"vs plain {loss_plain}")
             torch.cuda.synchronize()
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
@@ -2029,13 +2261,15 @@ def merged_topology_path(torch, np):
     cache = tier.store.cache
     hits, misses = int(cache.hits), int(cache.misses)
     check(hits > 0, "the device cache never hit on the merged path")
-    median = {k: statistics.median(s[k] for s in steps[1:])
+    median = {k: statistics.median(s[k] for s in steps
+                                   if s["step"] not in MERGED_PARITY)
               for k in ("train_ms", "wall_ms", "prep_time_s",
                         "sample_time_s")}
     emit({"phase": "main_path", "plane": MERGED_PLANE,
           "steps": MERGED_STEPS, "launches": launches, "hops": hops,
           "hit_ratio": hits / max(hits + misses, 1),
-          "median_of_steps_1_on": median,
+          "device_tier": _tier_totals(w["device_tier"] for w in windows),
+          "median_of_unchecked_steps": median,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     for name in PATH_KERNELS[MERGED_PLANE]:
         check(launches[name] > 0,
@@ -5039,6 +5273,10 @@ def main() -> int:
                         help="instead of the run, phase 2's cache rows and "
                         "phase 3 (also profiled) against the package of "
                         "TREE, a directory inside this checkout")
+    parser.add_argument("--tier-ab", nargs="?", const=".", metavar="TREE",
+                        help="instead of the run, phases 3 and 4 against "
+                        "the package of TREE, a directory inside this "
+                        "checkout")
     args = parser.parse_args()
     # the run uses one card: keep only the first visible one, so that the
     # device count on the last line is the number of cards that did the work
@@ -5049,7 +5287,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    tree = ROOT if args.cache_ab is None else (ROOT / args.cache_ab).resolve()
+    picked = args.cache_ab if args.tier_ab is None else args.tier_ab
+    tree = ROOT if picked is None else (ROOT / picked).resolve()
     if not tree.is_relative_to(ROOT):
         print(f"chip_smoke: {tree} is not inside {ROOT}", file=sys.stderr)
         return 2
@@ -5071,6 +5310,8 @@ def main() -> int:
         return cache_variants(torch, np)
     if args.cache_ab is not None:
         return cache_ab(torch, np, tree)
+    if args.tier_ab is not None:
+        return tier_ab(torch, np, tree)
     card_and_build(torch)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)

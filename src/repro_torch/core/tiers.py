@@ -101,9 +101,11 @@ class HostStager:
 
     def stage(self, node_ids: np.ndarray,
               needed: np.ndarray | None = None) -> torch.Tensor:
-        """features[node_ids] on the host.  With a boolean mask `needed`,
-        only those rows are written; the others hold stale bytes (zeros on
-        the CPU)."""
+        """features[node_ids] on the host, one row per id in their order.
+        With a boolean mask `needed`, only those rows are written; the
+        others hold stale bytes (zeros on the CPU).  The device tier passes
+        only the ids the card will read from staged rows, so its buffer
+        holds those rows alone, compacted."""
         idx = torch.from_numpy(np.asarray(node_ids, np.int64))
         shape = (len(idx), self.features.shape[1])
         if self.device.type == "cpu":
@@ -155,6 +157,52 @@ def _event_split(events: dict, order: list[str]) -> dict[str, float]:
     events[order[-1]].synchronize()
     return {b: events[a].elapsed_time(events[b])
             for a, b in zip(order, order[1:])}
+
+
+def _device_split(events: dict) -> dict[str, float]:
+    """The device tier's stage times from its events, once the last
+    completed: the two copies (ids and reuse counts, then the staged rows
+    and their map) as `h2d`, and the three device stages.  No pair spans
+    the host's wait for the access's verdict or its staging, and the
+    access's starts once the host has prepared its launches ("access"), so
+    that its enqueue on an idle stream is not read as the card's time."""
+    events["fill"].synchronize()
+
+    def ms(a: str, b: str) -> float:
+        return events[a].elapsed_time(events[b])
+    return {"h2d": ms("start", "ids") + ms("rows_start", "rows"),
+            "cache_access": ms("access", "cache_access"),
+            "gather": ms("rows", "gather"), "fill": ms("gather", "fill")}
+
+
+class _StageNeeded:
+    """The device tier's staging callable for `device_store.device_gather`:
+    asked once the cache access has run, it reads the access's verdict back
+    (the need and hit masks, in one copy), stages the needed requests' rows
+    compacted in request order, and starts their copy, with the map from
+    request to staged row (the identity when every request is needed).  It
+    keeps the hit mask, the staged host rows, the map's bytes and its clock
+    reads (`t_verdict` → `t_staging`: the wait for the verdict; →
+    `t_staged`: the staging) for the probe."""
+
+    def __init__(self, stager: HostStager, node_ids: np.ndarray, mark):
+        self.stager, self.node_ids, self.mark = stager, node_ids, mark
+
+    def __call__(self, need: torch.Tensor, hits: torch.Tensor):
+        self.t_verdict = time.perf_counter()
+        need, self.hits = torch.stack((need, hits)).cpu().numpy()
+        self.t_staging = time.perf_counter()
+        self.host = self.stager.stage(self.node_ids[need])
+        rows_map = np.full(len(need), -1, np.int32)
+        rows_map[need] = np.arange(len(self.host), dtype=np.int32)
+        self.map_bytes = rows_map.nbytes
+        self.t_staged = time.perf_counter()
+        self.mark("rows_start")
+        staged = self.stager.to_device(self.host)
+        rows_map = torch.from_numpy(rows_map).to(self.stager.device,
+                                                 non_blocking=True)
+        self.mark("rows")
+        return staged, rows_map
 
 
 def _line_fillers(before: np.ndarray, after: np.ndarray,
@@ -540,18 +588,32 @@ class DeviceStoreTier(_TierBase):
     """Device tier: cache metadata, row store and gather on the loader's
     device, via `device_store.device_gather`.
 
-    Each probe stages the requested host rows (through a pinned buffer and
-    a non-blocking copy on CUDA) and gathers every requested row on the
-    device; `last_rows` holds them as a device tensor, the real data path
-    of this tier.  No shape bucket is needed: requests are not padded.
-    A merged-window probe (`probe_merged`) stages the window's unique rows
-    once and leaves one device tensor per batch in `last_window_rows`.
-    On CUDA, `last_split_ms` holds the last probe's time per stage: on the
-    host clock the window's reuse counts (`future_counts`), host staging
-    (`stage_host`) and the host's wait for the card (`probe_wait`, from the
-    end of the enqueue until the hit mask and the CUDA events are read);
-    the rest between CUDA events.  An enabled `tracer` gets the three host
-    stages as wall spans, from the same clock reads.
+    Each probe copies the ids and their reuse counts to the device and runs
+    the cache access there first.  It then reads back the access's verdict
+    (which requests the card reads from staged rows, and the hit mask), and
+    stages and copies only those rows, compacted in request order, through
+    a pinned buffer and a non-blocking copy on CUDA, with an int32 map from
+    each request to its staged row (-1 where the row store serves it).
+    These are the misses and bypasses: a hit's row is never staged (on a
+    cold probe every row is, and the map is the identity).  The gather and
+    the fill read staged rows through the map.
+    `last_rows` holds every requested row as a device tensor, the real data
+    path of this tier.  No shape bucket is needed: requests are not padded.
+    A merged-window probe (`probe_merged`) does the same once over the
+    window's unique rows and leaves one device tensor per batch in
+    `last_window_rows`.
+
+    `last_counts` holds the last probe's rows, hits, staged rows, the bytes
+    copied for them (`h2d_bytes`, the map included) and the staged rows'
+    bytes (`needed_bytes`).  On CUDA, `last_split_ms` holds its time per
+    stage: on the host clock the window's reuse counts (`future_counts`),
+    host staging (`stage_host`) and the host's wait for the card
+    (`probe_wait`: the verdict's read, and the wait from the end of the
+    enqueue until the CUDA events are read); between CUDA events the two
+    copies together (`h2d`) and the three device stages, no pair of them
+    spanning a host wait or the staging.  An enabled `tracer` gets the host
+    stages as wall spans from the same clock reads, `probe_wait` once for
+    each of its two waits.
     """
 
     latency_class = "hbm"
@@ -571,6 +633,7 @@ class DeviceStoreTier(_TierBase):
         self.last_rows: torch.Tensor | None = None
         self.last_window_rows: list[torch.Tensor] | None = None
         self.last_split_ms: dict[str, float] = {}
+        self.last_counts: dict[str, int] = {}
         self.tracer = NULL_TRACER
 
     @property
@@ -610,48 +673,54 @@ class DeviceStoreTier(_TierBase):
 
     def _probe_rows(self, node_ids: np.ndarray,
                     inverses: list[np.ndarray] | None = None) -> np.ndarray:
-        ids = np.asarray(node_ids).astype(np.int32)
+        node_ids = np.asarray(node_ids)
+        ids = node_ids.astype(np.int32)
         events, mark = _stage_timer(self.device)
         t0 = time.perf_counter()
         fc, n_sorted = self._future_counts(node_ids)
         t1 = time.perf_counter()
-        host_rows = self._stager.stage(node_ids)
-        t2 = time.perf_counter()
         mark("start")
-        staged = self._stager.to_device(host_rows)
         ids_d = torch.from_numpy(ids).to(self.device, non_blocking=True)
         fc_d = torch.from_numpy(fc).to(self.device, non_blocking=True)
-        if inverses is None:
-            mark("h2d")
-            _, rows, hits = device_store.device_gather(
-                self.store, ids_d, staged, fc_d, mark=mark)
-            self.last_rows, self.last_window_rows = rows, None
-        else:
+        if inverses is not None:
             # one int64 upload for the window, cast to int32 on the device
             inv_d = torch.from_numpy(np.concatenate(inverses)).to(
                 self.device, non_blocking=True).to(torch.int32)
-            mark("h2d")
-            _, rows_list, hits = device_store.device_gather_merged(
-                self.store, ids_d, staged, fc_d,
+        mark("ids")
+        stage = _StageNeeded(self._stager, node_ids, mark)
+        if inverses is None:
+            _, rows, _ = device_store.device_gather(
+                self.store, ids_d, stage, fc_d, mark=mark)
+            self.last_rows, self.last_window_rows = rows, None
+        else:
+            _, rows_list, _ = device_store.device_gather_merged(
+                self.store, ids_d, stage, fc_d,
                 torch.split(inv_d, [len(i) for i in inverses]), mark=mark)
             self.last_rows, self.last_window_rows = None, rows_list
+        t2 = time.perf_counter()
+        split = _device_split(events) if events else {}  # waits for the card
         t3 = time.perf_counter()
-        hit_mask = hits.cpu().numpy()      # waits for the whole probe
-        split = _event_split(
-            events, ["start", "h2d", "cache_access", "gather", "fill"]) \
-            if events else {}
-        t4 = time.perf_counter()
+        staged_bytes = stage.host.numel() * stage.host.element_size()
+        self.last_counts = {
+            "rows": len(ids), "hits": int(stage.hits.sum()),
+            "staged_rows": stage.host.shape[0],
+            "h2d_bytes": staged_bytes + stage.map_bytes,
+            "needed_bytes": staged_bytes}
         if split:
-            self.last_split_ms = {"future_counts": (t1 - t0) * 1e3,
-                                  "stage_host": (t2 - t1) * 1e3} | split \
-                | {"probe_wait": (t4 - t3) * 1e3}
+            wait_ms = (stage.t_staging - stage.t_verdict + t3 - t2) * 1e3
+            self.last_split_ms = {
+                "future_counts": (t1 - t0) * 1e3,
+                "stage_host": (stage.t_staged - stage.t_staging) * 1e3} \
+                | split | {"probe_wait": wait_ms}
         tr = self.tracer
         if tr.enabled:
             tr.record("future_counts", t0, t1, ids=n_sorted)
-            tr.record("stage_host", t1, t2, rows=len(ids),
-                      bytes=host_rows.numel() * host_rows.element_size())
-            tr.record("probe_wait", t3, t4)
-        return hit_mask
+            tr.record("probe_wait", stage.t_verdict, stage.t_staging)
+            tr.record("stage_host", stage.t_staging, stage.t_staged,
+                      rows=len(ids), staged=stage.host.shape[0],
+                      bytes=staged_bytes)
+            tr.record("probe_wait", t2, t3)
+        return stage.hits
 
     def admit(self, node_ids: np.ndarray) -> None:
         if self.window_depth == 0:

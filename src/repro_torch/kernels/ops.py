@@ -25,23 +25,36 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def _maybe(t: torch.Tensor | None) -> tuple[torch.Tensor, ...]:
+    return () if t is None else (t,)
+
+
 def tiered_gather(slots: torch.Tensor, cache: torch.Tensor,
-                  staged: torch.Tensor) -> torch.Tensor:
-    if _on_cpu(slots, cache, staged):
-        return ref.tiered_gather_ref(slots, cache, staged)
-    return _tiered_gather.tiered_gather(slots, cache, staged)
+                  staged: torch.Tensor,
+                  staged_map: torch.Tensor | None = None) -> torch.Tensor:
+    """Each request's row from the row store (slots >= 0) or staged: with
+    `staged_map` (B,) int32 the staged buffer holds only the rows read
+    from it, request i's at staged_map[i]."""
+    if _on_cpu(slots, cache, staged, *_maybe(staged_map)):
+        return ref.tiered_gather_ref(slots, cache, staged, staged_map)
+    return _tiered_gather.tiered_gather(slots, cache, staged, staged_map)
 
 
 def tiered_gather_unique(slots: torch.Tensor, cache: torch.Tensor,
-                         staged: torch.Tensor,
-                         inverse: torch.Tensor) -> torch.Tensor:
+                         staged: torch.Tensor, inverse: torch.Tensor,
+                         staged_map: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """Gather over a merged window's U unique rows, expanded to one batch's
     N rows: `slots`/`staged` cover the unique rows, `inverse` (N,) int32
     maps each output row to its unique row (the merged-window executor,
-    `core.device_store.device_gather_merged`)."""
-    if _on_cpu(slots, cache, staged, inverse):
-        return ref.tiered_gather_unique_ref(slots, cache, staged, inverse)
-    return _tiered_gather.tiered_gather_unique(slots, cache, staged, inverse)
+    `core.device_store.device_gather_merged`); `staged_map` (U,) as in
+    `tiered_gather`."""
+    tensors = (slots, cache, staged, inverse, *_maybe(staged_map))
+    if _on_cpu(*tensors):
+        return ref.tiered_gather_unique_ref(slots, cache, staged, inverse,
+                                            staged_map)
+    return _tiered_gather.tiered_gather_unique(slots, cache, staged, inverse,
+                                               staged_map)
 
 
 def tiered_frontier_gather(page_slots: torch.Tensor, hot: torch.Tensor,
@@ -81,13 +94,15 @@ def segment_mean(idx: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
 
 
 def store_fill(rows: torch.Tensor, last_filler: torch.Tensor,
-               staged: torch.Tensor) -> None:
+               staged: torch.Tensor,
+               staged_map: torch.Tensor | None = None) -> None:
     """Write each line's last filler's staged row into the row store, in
-    place (the row-store update of `core.device_store.device_gather`)."""
-    if _on_cpu(rows, last_filler, staged):
-        ref.store_fill_ref(rows, last_filler, staged)
+    place (the row-store update of `core.device_store.device_gather`);
+    `staged_map` as in `tiered_gather`."""
+    if _on_cpu(rows, last_filler, staged, *_maybe(staged_map)):
+        ref.store_fill_ref(rows, last_filler, staged, staged_map)
     else:
-        _tiered_gather.store_fill(rows, last_filler, staged)
+        _tiered_gather.store_fill(rows, last_filler, staged, staged_map)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -7,18 +7,36 @@ from __future__ import annotations
 import torch
 
 
+def _staged_rows(staged: torch.Tensor, staged_map: torch.Tensor | None,
+                 requests: torch.Tensor) -> torch.Tensor:
+    """The staged rows of `requests` (request indices): staged[requests]
+    without a map, else staged[staged_map[requests]], rows of the
+    compacted buffer."""
+    if staged_map is not None:
+        requests = staged_map[requests]
+    return staged[requests.long()]
+
+
 def tiered_gather_ref(slots: torch.Tensor, cache: torch.Tensor,
-                      staged: torch.Tensor) -> torch.Tensor:
-    from_cache = cache[slots.clamp_min(0).long()]
-    return torch.where((slots >= 0)[:, None], from_cache, staged)
+                      staged: torch.Tensor,
+                      staged_map: torch.Tensor | None = None) -> torch.Tensor:
+    """out[i] = cache[slots[i]] where slots[i] >= 0, else request i's staged
+    row: staged[i], or staged[staged_map[i]] with a map."""
+    hit = slots >= 0
+    out = torch.empty((len(slots), staged.shape[1]), dtype=staged.dtype,
+                      device=staged.device)
+    out[hit] = cache[slots[hit].long()]
+    out[~hit] = _staged_rows(staged, staged_map, (~hit).nonzero()[:, 0])
+    return out
 
 
 def tiered_gather_unique_ref(slots: torch.Tensor, cache: torch.Tensor,
-                             staged: torch.Tensor,
-                             inverse: torch.Tensor) -> torch.Tensor:
+                             staged: torch.Tensor, inverse: torch.Tensor,
+                             staged_map: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """The (N, D) expansion of a gather over U unique rows: row n is unique
-    row inverse[n] of `tiered_gather_ref(slots, cache, staged)`."""
-    return tiered_gather_ref(slots, cache, staged)[inverse.long()]
+    row inverse[n] of `tiered_gather_ref(slots, cache, staged, staged_map)`."""
+    return tiered_gather_ref(slots, cache, staged, staged_map)[inverse.long()]
 
 
 def frontier_gather_ref(page_slots: torch.Tensor, hot: torch.Tensor,
@@ -46,11 +64,12 @@ def segment_mean_ref(idx: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
 
 
 def store_fill_ref(rows: torch.Tensor, last_filler: torch.Tensor,
-                   staged: torch.Tensor) -> None:
-    """rows[l] = staged[last_filler[l]] wherever last_filler[l] >= 0, in
-    place."""
+                   staged: torch.Tensor,
+                   staged_map: torch.Tensor | None = None) -> None:
+    """rows[l] = the staged row of request last_filler[l] wherever that is
+    >= 0, in place (through `staged_map` where given)."""
     filled = last_filler >= 0
-    rows[filled] = staged[last_filler[filled].long()]
+    rows[filled] = _staged_rows(staged, staged_map, last_filler[filled])
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

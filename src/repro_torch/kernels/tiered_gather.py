@@ -5,13 +5,16 @@ csrc/frontier_gather.cu), counterparts of `repro.kernels.tiered_gather`.
 bit-exact, any B and D, no padding copies.  `tiered_gather_unique`: the
 same over U unique rows, expanded to N output rows by an (N,) inverse
 without building the duplicated staged buffer.  `store_fill` writes the
-rows a cache access filled into the row store (in place).
+rows a cache access filled into the row store (in place).  Each of the
+three takes an optional `staged_map` (one int32 per request): the staged
+buffer then holds only the rows read from it, compacted, and request r's
+row is staged[staged_map[r]] (-1 where the row store serves r).
 `frontier_gather`: one word per edge read, from its hot page or its staged
 page, in the adjacency's int32 or int64 words.  `frontier_read`: one word
 per raw edge position, from its hot page on the device or from the
 adjacency in pinned host memory, read in place at the position through
-its device mapping.  Slots, inverses, offsets, positions, page tables and fillers
-must index real rows; the kernels do not check them.
+its device mapping.  Slots, inverses, maps, offsets, positions, page tables and
+fillers must index real rows; the kernels do not check them.
 """
 from __future__ import annotations
 
@@ -33,41 +36,61 @@ def _check_rows(name: str, **tensors: torch.Tensor) -> None:
                              for k, t in tensors.items()))
 
 
-def tiered_gather(slots: torch.Tensor, cache: torch.Tensor,
-                  staged: torch.Tensor) -> torch.Tensor:
-    _build.require_cuda("tiered_gather", slots, cache, staged)
-    _check_rows("tiered_gather", cache=cache, staged=staged)
-    if slots.dtype != torch.int32 or slots.shape != (staged.shape[0],):
-        raise ValueError(f"tiered_gather: slots must be ({staged.shape[0]},) "
-                         f"int32, got {tuple(slots.shape)} {slots.dtype}")
-    out = torch.empty_like(staged)
-    B = staged.shape[0]
-    row_bytes = staged.shape[1] * staged.element_size()
-    if B == 0 or row_bytes == 0:
-        return out
-    fn = _build.function("tiered_gather", "tiered_gather",
-                         (_build.P, _build.P, _build.P, _build.P, _build.LL,
-                          _build.LL, _build.P))
-    _build.check(fn(slots.data_ptr(), cache.data_ptr(), staged.data_ptr(),
-                    out.data_ptr(), B, row_bytes, _build.stream(staged)),
-                 "tiered_gather")
-    _build.LAUNCHES["tiered_gather"] += 1
-    return out
-
-
 def _check_index(name: str, what: str, t: torch.Tensor, n: int) -> None:
     if t.dtype != torch.int32 or t.shape != (n,):
         raise ValueError(f"{name}: {what} must be ({n},) int32, got "
                          f"{tuple(t.shape)} {t.dtype}")
 
 
+def _staged_map(name: str, staged: torch.Tensor,
+                staged_map: torch.Tensor | None, n: int) -> int:
+    """Check the staged buffer against `n` requests: (n, D) without a map,
+    else any number of rows with an (n,) int32 map on its device.  Returns
+    the map's address, 0 (null) without one."""
+    if staged_map is None:
+        if staged.shape[0] != n:
+            raise ValueError(f"{name}: staged must hold {n} rows without a "
+                             f"staged_map, got {tuple(staged.shape)}")
+        return 0
+    _build.require_cuda(name, staged_map, staged)
+    _check_index(name, "staged_map", staged_map, n)
+    return staged_map.data_ptr()
+
+
+def tiered_gather(slots: torch.Tensor, cache: torch.Tensor,
+                  staged: torch.Tensor,
+                  staged_map: torch.Tensor | None = None) -> torch.Tensor:
+    name = "tiered_gather"
+    _build.require_cuda(name, slots, cache, staged)
+    _check_rows(name, cache=cache, staged=staged)
+    B = slots.numel()
+    _check_index(name, "slots", slots, B)
+    map_ptr = _staged_map(name, staged, staged_map, B)
+    out = torch.empty((B, staged.shape[1]), dtype=staged.dtype,
+                      device=staged.device)
+    row_bytes = staged.shape[1] * staged.element_size()
+    if B == 0 or row_bytes == 0:
+        return out
+    fn = _build.function("tiered_gather", name,
+                         (_build.P, _build.P, _build.P, _build.P, _build.P,
+                          _build.LL, _build.LL, _build.P))
+    _build.check(fn(slots.data_ptr(), cache.data_ptr(), staged.data_ptr(),
+                    map_ptr, out.data_ptr(), B, row_bytes,
+                    _build.stream(staged)), name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
 def tiered_gather_unique(slots: torch.Tensor, cache: torch.Tensor,
-                         staged: torch.Tensor,
-                         inverse: torch.Tensor) -> torch.Tensor:
+                         staged: torch.Tensor, inverse: torch.Tensor,
+                         staged_map: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     name = "tiered_gather_unique"
     _build.require_cuda(name, slots, cache, staged, inverse)
     _check_rows(name, cache=cache, staged=staged)
-    _check_index(name, "slots", slots, staged.shape[0])
+    U = slots.numel()
+    _check_index(name, "slots", slots, U)
+    map_ptr = _staged_map(name, staged, staged_map, U)
     N = inverse.numel()
     _check_index(name, "inverse", inverse, N)
     out = torch.empty((N, staged.shape[1]), dtype=staged.dtype,
@@ -77,9 +100,9 @@ def tiered_gather_unique(slots: torch.Tensor, cache: torch.Tensor,
         return out
     fn = _build.function("tiered_gather", name,
                          (_build.P, _build.P, _build.P, _build.P, _build.P,
-                          _build.LL, _build.LL, _build.P))
+                          _build.P, _build.LL, _build.LL, _build.P))
     _build.check(fn(slots.data_ptr(), inverse.data_ptr(), cache.data_ptr(),
-                    staged.data_ptr(), out.data_ptr(), N, row_bytes,
+                    staged.data_ptr(), map_ptr, out.data_ptr(), N, row_bytes,
                     _build.stream(staged)), name)
     _build.LAUNCHES[name] += 1
     return out
@@ -175,22 +198,25 @@ def frontier_read(pos: torch.Tensor, page_table: torch.Tensor,
 
 
 def store_fill(rows: torch.Tensor, last_filler: torch.Tensor,
-               staged: torch.Tensor) -> None:
-    _build.require_cuda("store_fill", rows, last_filler, staged)
-    _check_rows("store_fill", rows=rows, staged=staged)
-    if last_filler.dtype != torch.int32 \
-            or last_filler.shape != (rows.shape[0],):
-        raise ValueError(f"store_fill: last_filler must be ({rows.shape[0]},)"
-                         f" int32, got {tuple(last_filler.shape)} "
-                         f"{last_filler.dtype}")
+               staged: torch.Tensor,
+               staged_map: torch.Tensor | None = None) -> None:
+    """`staged_map`, where given, maps request indices (the fillers) to
+    rows of the compacted `staged`; any length, as the fillers index it."""
+    name = "store_fill"
+    _build.require_cuda(name, rows, last_filler, staged)
+    _check_rows(name, rows=rows, staged=staged)
+    _check_index(name, "last_filler", last_filler, rows.shape[0])
+    map_ptr = 0
+    if staged_map is not None:
+        map_ptr = _staged_map(name, staged, staged_map, staged_map.numel())
     L = rows.shape[0]
     row_bytes = rows.shape[1] * rows.element_size()
     if L == 0 or row_bytes == 0:
         return
-    fn = _build.function("tiered_gather", "store_fill",
-                         (_build.P, _build.P, _build.P, _build.LL, _build.LL,
-                          _build.P))
-    _build.check(fn(last_filler.data_ptr(), staged.data_ptr(),
+    fn = _build.function("tiered_gather", name,
+                         (_build.P, _build.P, _build.P, _build.P, _build.LL,
+                          _build.LL, _build.P))
+    _build.check(fn(last_filler.data_ptr(), staged.data_ptr(), map_ptr,
                     rows.data_ptr(), L, row_bytes, _build.stream(rows)),
-                 "store_fill")
+                 name)
     _build.LAUNCHES["store_fill"] += 1

@@ -4,3 +4,9 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parents[1] / "src"
 if str(SRC) not in sys.path:
     sys.path.insert(0, str(SRC))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA card; skips without one (run on the "
+        "card with `python3 -m pytest -m chip tests/test_torch_gather_map.py`)")

@@ -381,3 +381,107 @@ def test_bucket_wrapper_refuses_cpu_tensors_and_counts_no_launch():
     order, start = cache_device.bucket_by_set(ids, 4)
     assert _build.LAUNCHES == before and "cache_bucket" in _build.LAUNCHES
     assert int(start[-1]) == 3 and int(order[-1]) == 1      # the pad last
+
+
+def _full_staging_probe(tier, node_ids, inverses=None):
+    """A device tier's probe as it ran with every requested row staged: the
+    same window and reuse counts, the rows handed to `device_gather` as one
+    tensor, a row per request.  Returns (hit mask, [rows])."""
+    if inverses is None and tier.window:
+        tier.window.popleft()
+    fc, _ = tier._future_counts(node_ids)
+    ids = torch.from_numpy(node_ids.astype(np.int32))
+    staged = tier._stager.stage(node_ids)
+    fc = torch.from_numpy(fc)
+    if inverses is None:
+        _, rows, hits = tds.device_gather(tier.store, ids, staged, fc)
+        return hits.numpy(), [rows]
+    _, rows, hits = tds.device_gather_merged(
+        tier.store, ids, staged, fc,
+        [torch.from_numpy(i.astype(np.int32)) for i in inverses])
+    return hits.numpy(), rows
+
+
+@pytest.mark.parametrize("merged", [False, True], ids=["batch", "window"])
+def test_device_tier_stages_only_the_rows_it_reads(merged):
+    """Over a windowed run of skewed batches (cold, then hits, misses and
+    bypasses), a `DeviceStoreTier` stages exactly the probe's misses, as
+    one compacted buffer; its rows, hit masks, cache metadata and row store
+    equal those of the path that stages every requested row, and the rows
+    are `features[ids]` bit for bit."""
+    from repro_torch.core.tiers import DeviceStoreTier
+
+    rng = np.random.default_rng(11)
+    feats = rng.standard_normal((500, 20)).astype(np.float32)
+    depth, n_batches = 3, 18
+    tier, twin = (DeviceStoreTier(feats, num_lines=48, ways=4,
+                                  window_depth=depth, device="cpu")
+                  for _ in range(2))
+    batches = [np.unique(np.concatenate([rng.integers(0, 40, 30),
+                                         rng.integers(0, 500, 30)]))
+               for _ in range(n_batches)]
+    group = 3 if merged else 1
+    for b in batches[:depth]:
+        tier.admit(b)
+        twin.admit(b)
+    compacted = 0
+    for start in range(0, n_batches, group):
+        window = batches[start:start + group]
+        if merged:
+            ids = np.unique(np.concatenate(window))
+            inverses = [np.searchsorted(ids, b) for b in window]
+            for t in (tier, twin):
+                for _ in range(min(group, len(t.window))):
+                    t.window.popleft()
+            hits = tier.probe_merged(ids, np.ones(len(ids), np.int64),
+                                     inverses)
+            rows = tier.last_window_rows
+            want_hits, want_rows = _full_staging_probe(twin, ids, inverses)
+        else:
+            (ids,) = window
+            hits = tier.probe(ids)
+            rows = [tier.last_rows]
+            want_hits, want_rows = _full_staging_probe(twin, ids)
+        for b in batches[start + depth:start + depth + group]:
+            tier.admit(b)
+            twin.admit(b)
+        np.testing.assert_array_equal(hits, want_hits)
+        for b, got, want in zip(window, rows, want_rows):
+            assert torch.equal(got, want)
+            assert torch.equal(got, torch.from_numpy(feats[b]))
+        for name in ("tags", "reuse", "slots", "hits", "misses", "bypasses"):
+            assert torch.equal(getattr(tier.store.cache, name),
+                               getattr(twin.store.cache, name)), name
+        assert torch.equal(tier.store.rows, twin.store.rows)
+        counts = tier.last_counts
+        misses = len(ids) - int(hits.sum())
+        assert counts["rows"] == len(ids) and counts["hits"] == hits.sum()
+        assert counts["staged_rows"] == misses
+        assert counts["needed_bytes"] == misses * feats.shape[1] * 4
+        assert counts["h2d_bytes"] == counts["needed_bytes"] + 4 * len(ids)
+        compacted += 0 < misses < len(ids)
+    assert compacted >= 3
+    assert int(tier.store.cache.bypasses) > 0
+    _check_rows(tier.store, feats)
+
+
+@pytest.mark.parametrize("merged", [False, True], ids=["batch", "window"])
+def test_device_gather_marks_the_access_once_it_is_prepared(merged):
+    """`mark` sees "access" (right before the access's first launch, where
+    the device tier starts its `cache_access` segment) and then the three
+    steps, each once and in order; `before_launch` runs once per access."""
+    store = tds.init_store(16, 4, ways=4, device="cpu")
+    ids = torch.tensor([3, 7, 3 + 16 * 4, -1], dtype=torch.int32)
+    fc = torch.ones(4, dtype=torch.int32)
+    staged = torch.arange(16, dtype=torch.float32).reshape(4, 4)
+    marks = []
+    if merged:
+        tds.device_gather_merged(store, ids, staged, fc,
+                                 [torch.tensor([0, 2], dtype=torch.int32)],
+                                 mark=marks.append)
+    else:
+        tds.device_gather(store, ids, staged, fc, mark=marks.append)
+    assert marks == ["access", "cache_access", "gather", "fill"]
+    calls = []
+    cache_device.access(store.cache, ids, fc, lambda: calls.append(1))
+    assert calls == [1]

@@ -374,11 +374,15 @@ def test_device_tier_spans_under_execute(graphs_and_feats, sampler):
         assert [p.args["tier"] for p in probes] \
             == [t.name for t in traced.store.tiers][:len(probes)]
         top = probes[0]
+        # the wait for the access's verdict, the staging of the rows the
+        # card reads from the staged buffer (the misses), the final wait
         assert [c.name for c in top.children] \
-            == ["future_counts", "stage_host", "probe_wait"]
-        assert top.args["rows"] == top.children[1].args["rows"]
-        assert top.children[1].args["bytes"] \
-            == top.args["rows"] * traced.store.feature_dim * 4
+            == ["future_counts", "probe_wait", "stage_host", "probe_wait"]
+        stage = top.children[2]
+        assert top.args["rows"] == stage.args["rows"]
+        assert stage.args["staged"] == top.args["rows"] - top.args["hits"]
+        assert stage.args["bytes"] \
+            == stage.args["staged"] * traced.store.feature_dim * 4
         assert 0 <= top.args["hits"] <= top.args["rows"]
         assert ex.self_time() >= 0.0 and gather.self_time() >= 0.0
     # the window of future batches was full from the first probe on
