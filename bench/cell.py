@@ -1,14 +1,13 @@
 """One run of a cell: set-up, the first training steps, the measured window
 and the checks.
 
-The loop is the paper's training loop on the cell's data plane, as
-`examples/train_gnn_igb_torch.py` drives it: `GIDSDataLoader.next_batch()`,
-`models.gnn.hop_indices` and the upload of indices and labels, then
-`models.gnn.sgd_step`.  Set-up builds one loader and one model, drives them
-through the traffic's warm-up steps (the first `checked_steps` of them are
-the steps the reference follows), and hands the same objects to the window.
-The window starts after warm-up and ends with the first step that ends
-past `--seconds`, and holds at least two steps; every step in it counts.
+The program, its inputs and what its batches are checked by come from the
+cell's family (`families/<name>.py`); the loop is the same for every
+family.  Set-up builds one program, drives it through the traffic's warm-up
+steps (the first `checked_steps` of them are the steps the reference
+follows), and hands the same object to the window.  The window starts
+after warm-up and ends with the first step that ends past `--seconds`, and
+holds at least two steps; every step in it counts.
 """
 from __future__ import annotations
 
@@ -20,21 +19,16 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import core as program_core
-from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import _build
-from repro_torch.models.gnn import GNN, GNNConfig, hop_indices, sgd_step
 
 from . import inputs as inputs_mod
-from . import judge, yardstick
+from . import judge
 from . import trace as trace_mod
 from .spec import Cell
 
 #: steps a window holds at the least: a percentile of the steps' times
 #: needs two
 MIN_WINDOW_STEPS = 2
-#: the CUDA sources the GNN training path launches
-KERNEL_SOURCES = ("segment_mean", "tiered_gather", "cache_access")
 
 
 @dataclasses.dataclass
@@ -45,9 +39,10 @@ class Step:
     seeds: int
     staged_rows: int                 # rows the top tier staged
     split_ms: dict                   # DeviceStoreTier.last_split_ms
-    model_ms: float | None = None    # CUDA events around sgd_step
-    segment_mean_bytes: int = 0
-    tiered_gather_bytes: int = 0
+    model_ms: float | None = None    # CUDA events around the model step
+    #: per kernel, (bytes it has to move, launches), from the family's
+    #: `kernel_counts` in traced runs
+    kernels: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -63,77 +58,20 @@ class Window:
     device_trace: trace_mod.DeviceTrace | None
     cache_hits: int | None
     cache_misses: int | None
+    #: a step's matrix-product operations (the family's
+    #: `step_matmul_flops` at the mix's batch)
+    step_flops: int | None = None
 
     @property
     def seconds(self) -> float:
         return self.t1 - self.t0
 
 
-class Program:
-    """The measured package's training loop for one cell."""
-
-    def __init__(self, cell: Cell, inp: inputs_mod.Inputs, seed: int,
-                 device: torch.device, spans: trace_mod.Spans):
-        cfg = cell.config
-        self.device, self.lr, self.spans = device, cfg["lr"], spans
-        # every field of the model's and the loader's configuration that the
-        # configuration file sets reaches the program; the rest keep the
-        # program's defaults
-        model_fields = {f.name for f in dataclasses.fields(GNNConfig)}
-        model_cfg = {k: v for k, v in cfg.items() if k in model_fields}
-        model_cfg["fanouts"] = tuple(cfg["fanouts"])
-        self.model = GNN(GNNConfig(**model_cfg), device=device)
-        self.model.load_reference_params(inp.params)
-        graph = CSRGraph(indptr=inp.indptr, indices=inp.indices,
-                         num_nodes=len(inp.indptr) - 1,
-                         feature_dim=inp.features.shape[1],
-                         name=cell.config_name)
-        loader = dict(cfg["loader"])
-        ssd = getattr(program_core, loader.pop("ssd"))
-        self.loader = program_core.GIDSDataLoader(
-            graph, inp.features,
-            program_core.LoaderConfig(
-                **loader, batch_size=cell.traffic["batch_size"],
-                fanouts=tuple(cfg["fanouts"]),
-                seed=inputs_mod.stream_seed(seed, 4)),
-            ssd=ssd, train_ids=inp.seed_pool, device=device)
-        self.labels = torch.from_numpy(inp.labels).to(device)
-        self.top = self.loader.store.tiers[0]
-        if spans.enabled:
-            spans.wrap(self.loader, "plan_next", "plan_next")
-            spans.wrap(self.loader, "execute", "execute")
-
-    def step(self, events: list | None = None):
-        """One training step; returns (batch, host hop indices, loss)."""
-        b = self.loader.next_batch()
-        with self.spans("feed"):
-            hi_np = hop_indices(b.blocks)
-            hi = [torch.from_numpy(i).to(self.device) for i in hi_np]
-            y = self.labels[torch.from_numpy(b.blocks.seeds).to(self.device)]
-        with self.spans("model_step"):
-            if events is not None:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[-1].record()
-            loss = sgd_step(self.model, b.features, hi, y, self.lr)
-            if events is not None:
-                events.append(torch.cuda.Event(enable_timing=True))
-                events[-1].record()
-        return b, hi_np, loss
-
-    def params(self) -> dict:
-        return judge.cpu_tree(self.model.param_tree())
-
-    def cache_counters(self) -> tuple[int, int] | None:
-        store = getattr(self.top, "store", None)
-        if store is None:
-            return None
-        return int(store.cache.hits), int(store.cache.misses)
-
-
-def _kept(b, row_sums, col_sums) -> dict:
-    return {"seeds": b.blocks.seeds, "hop_nodes": b.blocks.hop_nodes,
-            "all_nodes": b.blocks.all_nodes, "row_sums": row_sums,
-            "col_sums": col_sums}
+def _kept(ids: dict, b) -> dict:
+    """What the checks keep of batch `b`: its ids (the family's `kept`),
+    and the checksums of its gathered rows, computed where they lie."""
+    row_sums, col_sums = judge.checksums(b.features)
+    return ids | {"row_sums": row_sums, "col_sums": col_sums}
 
 
 class Reservoir:
@@ -170,15 +108,15 @@ def setup(cell: Cell, seed: int, device: torch.device,
     torch.backends.cudnn.allow_tf32 = cfg["tf32"]
     marks = [("start", time.perf_counter())]
     if device.type == "cuda":
-        _build.build(KERNEL_SOURCES)
+        _build.build(cell.family.kernel_sources)
     marks.append(("build", time.perf_counter()))
-    inp = inputs_mod.make(cfg, traffic, seed, device)
+    inp = cell.family.make_inputs(cfg, traffic, seed, device)
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     marks.append(("inputs", time.perf_counter()))
-    prog = Program(cell, inp, seed, device, spans)
+    prog = cell.family.Program(cell, inp, seed, device, spans)
     marks.append(("program", time.perf_counter()))
     n_checked = traffic["checked_steps"]
     if not 1 <= n_checked <= traffic["warmup_steps"]:
@@ -187,7 +125,7 @@ def setup(cell: Cell, seed: int, device: torch.device,
     for i in range(traffic["warmup_steps"]):
         b, _, loss = prog.step()
         if i < n_checked:
-            first.append(_kept(b, *judge.checksums(b.features)))
+            first.append(_kept(cell.family.kept(b), b))
             checked["losses"].append(float(loss))
             if i == 0:
                 checked["params1"] = prog.params()
@@ -217,7 +155,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     reservoir = Reservoir(traffic["window_sample"], seed)
     steps: list[Step] = []
     losses: list[torch.Tensor] = []
-    hop_idx: list[list[np.ndarray]] = []
+    shapes: list = []
     events: list | None = [] if (traced and cuda) else None
     # every run on the card traces its device operations: the end-to-end
     # device time per seed is read from that trace
@@ -232,20 +170,21 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     deadline = t0 + seconds
     while True:
         ts = time.perf_counter()
-        b, hi_np, loss = prog.step(events)
+        b, shape, loss = prog.step(events)
+        ids = cell.family.kept(b)
         slot = reservoir.offer(len(steps))
         if slot is not None:
-            reservoir.items[slot] = _kept(b, *judge.checksums(b.features))
+            reservoir.items[slot] = _kept(ids, b)
         losses.append(loss)
         _sync(device)
         te = time.perf_counter()
-        steps.append(Step(wall_s=te - ts, seeds=len(b.blocks.seeds),
-                          staged_rows=len(b.blocks.all_nodes),
+        steps.append(Step(wall_s=te - ts, seeds=len(ids["seeds"]),
+                          staged_rows=len(ids["all_nodes"]),
                           split_ms=dict(getattr(prog.top, "last_split_ms",
                                                 {}))))
         if traced:
-            hop_idx.append(hi_np)
-        del b, hi_np, loss
+            shapes.append(shape)
+        del b, shape, loss, ids
         if te >= deadline and len(steps) >= MIN_WINDOW_STEPS:
             break
     t1 = te
@@ -259,7 +198,8 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
         for s, (a, e) in zip(steps, zip(events[::2], events[1::2])):
             s.model_ms = a.elapsed_time(e)
     if traced:
-        _count_kernel_bytes(steps, hop_idx, cfg)
+        for s, shape in zip(steps, shapes, strict=True):
+            s.kernels = cell.family.kernel_counts(cfg, s, shape)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     nonfinite = judge.nonfinite_count(losses)
     sampled = [judge.to_host(k) for k in reservoir.items]
@@ -274,28 +214,12 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    checks = judge.judge(cfg, traffic, inp, first, sampled, program,
-                         nonfinite, device)
+    checks = judge.judge(cell, inp, first, sampled, program, nonfinite,
+                         device)
     window = Window(config=cfg, traffic=traffic, t0=t0, t1=t1, steps=steps,
                     spans=spans, device_trace=dtrace, cache_hits=hits,
-                    cache_misses=misses)
+                    cache_misses=misses,
+                    step_flops=cell.family.step_matmul_flops(
+                        cfg, traffic["batch_size"]))
     return {"setup_s": t0 - t_start, "window": window, "checks": checks,
             "nonfinite": nonfinite, "memory_peak_bytes": peak}
-
-
-def _count_kernel_bytes(steps: list[Step], hop_idx: list, cfg: dict) -> None:
-    """Bytes `segment_mean` and `tiered_gather` have to move in each step,
-    from the step's shapes (`yardstick`)."""
-    fanouts, dim = cfg["fanouts"], cfg["in_dim"]
-    for s, hi in zip(steps, hop_idx, strict=True):
-        seen = np.zeros(s.staged_rows, bool)
-        total = 0
-        for lvl, f in enumerate(fanouts):
-            idx = hi[lvl + 1]
-            seen[:] = False
-            seen[idx] = True
-            total += yardstick.segment_mean_bytes(
-                len(idx) // f, f, int(seen.sum()), dim)
-        s.segment_mean_bytes = total
-        s.tiered_gather_bytes = yardstick.tiered_gather_bytes(
-            s.staged_rows, dim)

@@ -14,8 +14,9 @@ upper readings):
   taken over the rest.
 
 With `--witness`, every seed also reads `reordered`: the reference run on
-the same batches with every row's sampled neighbours (and their subtrees)
-in reverse order.  The step is the same sum; only float32's order of
+the same batches summed in another order (the family's `reordered`; for
+`gnn`, every row's sampled neighbours and their subtrees in reverse
+order).  The step is the same sum; only float32's order of
 additions changes, so its readings are what round-off alone gives, with no
 program in the comparison.  It also reads the program and the float32
 reference each against the reference in float64, nearer the exact step
@@ -35,21 +36,6 @@ import json
 import sys
 from pathlib import Path
 
-import numpy as np
-
-
-
-def reversed_subtrees(step: dict, fanouts) -> dict:
-    """`step` with each row's sampled neighbours in reverse order, every
-    subtree moved with its root: the same batch, summed in another
-    order."""
-    perm = np.arange(len(step["seeds"]))
-    hops = []
-    for f, nodes in zip(fanouts, step["hop_nodes"]):
-        perm = (perm[:, None] * f + np.arange(f - 1, -1, -1)).reshape(-1)
-        hops.append(np.asarray(nodes)[perm])
-    return {**step, "hop_nodes": hops}
-
 
 def readings(cell, seed: int, device, planted: bool,
              witness: bool = False) -> dict:
@@ -58,10 +44,8 @@ def readings(cell, seed: int, device, planted: bool,
     import torch
 
     from . import cell as cell_run
-    from . import inputs as inputs_mod
     from . import judge
     from . import trace as trace_mod
-    from .reference import follow
 
     inp, prog, first, program = cell_run.setup(
         cell, seed, device, trace_mod.Spans(False))
@@ -69,14 +53,12 @@ def readings(cell, seed: int, device, planted: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    cfg = cell.config
+    cfg, family = cell.config, cell.family
     params0 = judge.cpu_tree(inp.params)
 
     def run_ref(steps=first, **kw) -> dict:
-        return judge.cpu_tree_all(follow.follow(
-            cfg["model"], inp.params, steps, inp.features, inp.labels,
-            cfg["fanouts"], inputs_mod.heads(cfg), cfg["lr"], device,
-            **kw))
+        return judge.cpu_tree_all(family.follow(cfg, inp, steps, device,
+                                                **kw))
 
     def as_program(r: dict) -> dict:
         return {"losses": r["losses"], "params1": r["params1"],
@@ -92,7 +74,7 @@ def readings(cell, seed: int, device, planted: bool,
                                             params0, cfg["lr"])
     if witness:
         out["reordered"] = judge.training_gaps(as_program(run_ref(
-            [reversed_subtrees(b, cfg["fanouts"]) for b in first])), ref,
+            [family.reordered(b, cfg) for b in first])), ref,
             params0, cfg["lr"])
         exact = run_ref(dtype=torch.float64)
         out["program_vs_f64"] = judge.training_gaps(program, exact, params0,

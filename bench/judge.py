@@ -3,14 +3,14 @@ beside its limit from the configuration's `limits`.
 
 - `bad_sample_ids`: ids of the checked batches (the first training steps
   and a sample of the window's steps drawn from the seed) that break what
-  the sampler guarantees (`reference.check.bad_sample_ids`).  Limit 0.
+  the sampler guarantees (the family's `bad_sample_ids`).  Limit 0.
 - `bad_feature_rows`: rows of those batches' `Batch.features` whose
   checksum differs from the feature table's.  Limit 0.
 - `nonfinite_losses`: steps of the window whose loss is not finite.
   Limit 0.
 - `loss_gap`: the worst of the first steps' |loss - reference loss| over
-  |reference loss|, the reference following the same batches from the
-  same initial parameters.  One step's reading under TF32 can fall to
+  |reference loss|, the reference (the family's `follow`) following the
+  same batches from the same initial parameters.  One step's reading under TF32 can fall to
   float32's own; the worst of three does not.
 - `grad_gap`: the first step's gradient as SGD got it, (p0 - p1) / lr,
   against the reference's, read from its parameters the same way: per
@@ -40,8 +40,7 @@ import statistics
 
 import torch
 
-from . import inputs as inputs_mod
-from .reference import check, follow
+from .reference import check
 
 #: the training step's numbers, compared once the sampled ids are sound
 GAPS = ("loss_gap", "grad_gap", "change_gap", "grad_gap_worst",
@@ -53,9 +52,10 @@ def training_gaps(program: dict, ref: dict, params0: dict,
                   lr: float) -> dict:
     """`loss_gap`, `grad_gap` and `change_gap` of a run against the
     reference's (or the control's) run of the same steps, at the median
-    and at the worst leaf, with every leaf's gap (for `bench.control`).  `program` holds "losses", "params1" (after the first
-    step) and "params_n" (after the last checked step); `ref` is
-    `follow.follow`'s result, on the host."""
+    and at the worst leaf, with every leaf's gap (for `bench.control`).
+    `program` holds "losses", "params1" (after the first step) and
+    "params_n" (after the last checked step); `ref` is the family's
+    `follow` result, on the host."""
     counted = check.counted_leaves(check.leaf_norms(ref["grads"]))
     grad = check.leaf_gaps(
         check.leaf_norms(check.sgd_gradient(params0, program["params1"], lr)),
@@ -85,30 +85,22 @@ def cpu_tree(tree: dict) -> dict:
                 for k, v in grp.items()} for g, grp in tree.items()}
 
 
-def judge(config: dict, traffic: dict, inputs, first: list[dict],
-          sampled: list[dict], program: dict, nonfinite: int,
-          device: torch.device) -> dict:
+def judge(cell, inputs, first: list[dict], sampled: list[dict],
+          program: dict, nonfinite: int, device: torch.device) -> dict:
     """The compared numbers, each as {"value", "limit"}.  `first` and
-    `sampled` hold the checked batches ("seeds", "hop_nodes",
-    "all_nodes", "row_sums", "col_sums", host arrays); `program` the
-    first steps' losses and parameters (see `training_gaps`)."""
-    fanouts = config["fanouts"]
-    graph = check.Graph(inputs.indptr, inputs.indices)
-    bad_ids = bad_rows = 0
-    for b in first + sampled:
-        bad_ids += check.bad_sample_ids(graph, inputs.seed_pool, b["seeds"],
-                                        b["hop_nodes"],
-                                        b["all_nodes"], fanouts,
-                                        traffic["batch_size"])
-        bad_rows += check.bad_rows(inputs.features, b["all_nodes"],
-                                   b["row_sums"], b["col_sums"])
+    `sampled` hold the checked batches (the family's `kept` with
+    "row_sums" and "col_sums", host arrays); `program` the first steps'
+    losses and parameters (see `training_gaps`)."""
+    config, family = cell.config, cell.family
+    bad_ids = family.bad_sample_ids(config, cell.traffic, inputs,
+                                    first + sampled)
+    bad_rows = sum(check.bad_rows(inputs.features, b["all_nodes"],
+                                  b["row_sums"], b["col_sums"])
+                   for b in first + sampled)
     values = {"bad_sample_ids": bad_ids, "bad_feature_rows": bad_rows,
               "nonfinite_losses": nonfinite}
     if bad_ids == 0:
-        ref = follow.follow(config["model"], inputs.params, first,
-                            inputs.features, inputs.labels, fanouts,
-                            inputs_mod.heads(config), config["lr"],
-                            device)
+        ref = family.follow(config, inputs, first, device)
         gaps = training_gaps(program, cpu_tree_all(ref),
                              cpu_tree(inputs.params), config["lr"])
         values |= {k: gaps[k] for k in GAPS}

@@ -3,7 +3,7 @@ reference in TF32 in the program's place fails the cell's limits, where the
 program passes them.  Skips without a card."""
 import pytest
 
-from bench import control
+from bench import control, judge
 
 from . import tiny
 
@@ -16,6 +16,6 @@ def test_control_fails_the_limits(tmp_path, cuda_device, name):
     limits = cell.config["limits"]
     for seed in (1, 2, 3):
         got = control.readings(cell, seed, cuda_device, planted=True)
-        assert all(got["program"][k] <= limits[k] for k in control.GAPS)
+        assert all(got["program"][k] <= limits[k] for k in judge.GAPS)
         for planted in ("control", "half_batch"):
-            assert any(got[planted][k] > limits[k] for k in control.GAPS)
+            assert any(got[planted][k] > limits[k] for k in judge.GAPS)

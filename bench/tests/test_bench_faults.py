@@ -9,10 +9,12 @@ import repro_torch.core.device_store as device_store
 import repro_torch.core.pipeline as pipeline
 from bench import cell as cell_run
 from bench import judge
+from repro_torch.models.gnn import sgd_step as real_sgd_step
 
 from . import tiny
 
-real_sgd_step = cell_run.sgd_step
+#: the fault is planted in the cell's family module (its `sgd_step`)
+FAMILY = "family"
 
 
 def state_unchanged(model, feats, hop_idx, labels, lr):
@@ -66,10 +68,10 @@ real_gather = device_store.device_gather
 real_sample = pipeline.host_sample_blocks
 
 FAULTS = {
-    "state_unchanged": (cell_run, "sgd_step", state_unchanged,
+    "state_unchanged": (FAMILY, "sgd_step", state_unchanged,
                         ("change_gap", "grad_gap")),
-    "half_batch": (cell_run, "sgd_step", half_batch, ("loss_gap",)),
-    "one_leaf_unmoved": (cell_run, "sgd_step", one_leaf_unmoved,
+    "half_batch": (FAMILY, "sgd_step", half_batch, ("loss_gap",)),
+    "one_leaf_unmoved": (FAMILY, "sgd_step", one_leaf_unmoved,
                          ("grad_gap_worst", "change_gap_worst")),
     "altered_rows": (device_store, "device_gather", altered_rows,
                      ("bad_feature_rows",)),
@@ -83,7 +85,8 @@ FAULTS = {
 def test_broken_path_is_not_correct(tmp_path, monkeypatch, name, fault):
     module, attr, broken, fails = FAULTS[fault]
     cell = tiny.tiny_cell(tmp_path, name)
-    monkeypatch.setattr(module, attr, broken)
+    monkeypatch.setattr(cell.family if module == FAMILY else module, attr,
+                        broken)
     out = cell_run.run(cell, 17, 0.2, False, torch.device("cpu"), 0.0)
     assert not judge.passed(out["checks"])
     for number in fails:

@@ -97,8 +97,8 @@ def test_every_loader_field_and_the_mix_reach_the_program(tmp_path):
     assert len(inp.seed_pool) == round(0.25 * with_edge)
     assert np.isin(first[0]["seeds"], inp.seed_pool).all()
     # the split belongs to the dataset: another --seed draws the same one
-    again = cell_run.inputs_mod.make(cell.config, cell.traffic, 5,
-                                     torch.device("cpu"))
+    again = cell.family.make_inputs(cell.config, cell.traffic, 5,
+                                    torch.device("cpu"))
     np.testing.assert_array_equal(again.seed_pool, inp.seed_pool)
 
 
