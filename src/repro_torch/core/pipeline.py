@@ -24,7 +24,11 @@ amortized across its batches.  On a topology plane
 (`DataPlaneSpec.topology`) sampling runs against a `TieredTopologyStore`
 and each batch's priced sampling time rides on its `prep_time_s`.
 
-The sampler is the neighbour sampler or LADIES (`LoaderConfig.sampler`).
+The sampler is the neighbour sampler, LADIES or, over a `HeteroGraph`,
+the relational sampler (`LoaderConfig.sampler`): typed nodes, per-relation
+draws, deduplicated blocks (`sampling/relational.py`).  A typed graph's
+`union()` is what the data plane reads; everything after sampling runs on
+the blocks' `all_nodes` over one feature table, as for the other samplers.
 `state_dict()` / `load_state_dict()` capture and restore the resume point
 (the sampler state before the oldest batch not yet consumed), so a
 checkpointed run resumes with the same batches; the state is the
@@ -65,9 +69,11 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.hetero import HeteroGraph
 from repro_torch.obs import HOT_PATH, NULL_TRACER, attach_burst_spans
 from repro_torch.sampling.ladies import ladies_sample_blocks
 from repro_torch.sampling.neighbor import SampledBlocks, host_sample_blocks
+from repro_torch.sampling.relational import relational_sample_blocks
 from repro_torch.sampling.tiered import tiered_sample_blocks
 from .accumulator import AccumulatorConfig, DynamicAccessAccumulator
 from .dataplane import DataPlane, DataPlaneSpec
@@ -82,17 +88,21 @@ from .topology import TieredTopologyStore
 #: Sampler names the loader knows how to drive.  `LoaderConfig` validates
 #: at construction: an unknown sampler fails when the config is built, not
 #: on the first batch.
-SAMPLERS = ("neighbor", "ladies")
+SAMPLERS = ("neighbor", "ladies", "relational")
 
 #: The port's hot-path wall spans (category `HOT_PATH`) and the stages they
 #: open under.  Host and LADIES sampling (`sample_blocks`; a topology plane
-#: records the reference's `sample` stage instead), the window admits, the
+#: records the reference's `sample` stage instead), the relational sampler's
+#: draws (`sample_relations`) and its deduplication into blocks
+#: (`build_blocks`), a few of each per batch, the window admits, the
 #: merge of a window's request lists, the gather (one `probe` per tier the
 #: fold offers requests: a device tier's host stages under it) and the
 #: reports built from its plan, the pricing with the accumulator's update,
 #: and the feedback step.
 HOT_PATH_SPANS: dict[str, tuple[str, ...]] = {
     "sample_blocks": ("plan_next",),
+    "sample_relations": ("plan_next",),
+    "build_blocks": ("plan_next",),
     "admit": ("plan_next", "execute_window"),
     "merge": ("execute_window",),
     "gather": ("execute", "execute_window"),
@@ -111,7 +121,8 @@ HOT_PATH_SPANS: dict[str, tuple[str, ...]] = {
 class LoaderConfig:
     batch_size: int = 4096
     fanouts: Sequence[int] = (10, 5, 5)       # 3 sampling layers (paper §4.1)
-    sampler: str = "neighbor"                  # or "ladies"
+    sampler: str = "neighbor"                  # "ladies"; "relational"
+                                               # over a HeteroGraph
     ladies_layer_sizes: Sequence[int] = (512, 512, 512)
     data_plane: DataPlaneSpec | str | None = None  # preset name or spec;
                                                    # None resolves to "gids"
@@ -197,13 +208,23 @@ class Batch:
 
 
 class GIDSDataLoader:
-    def __init__(self, graph: CSRGraph, features: np.ndarray,
+    def __init__(self, graph: CSRGraph | HeteroGraph, features: np.ndarray,
                  config: LoaderConfig | None = None,
                  ssd: SSDSpec = INTEL_OPTANE,
                  train_ids: np.ndarray | None = None,
                  device: str | torch.device = "cuda", tracer=None):
-        self.graph = graph
         self.config = cfg = config or LoaderConfig()
+        # the relational sampler draws from the typed graph; the data plane
+        # and every other stage read its union
+        self.hgraph: HeteroGraph | None = None
+        if isinstance(graph, HeteroGraph):
+            self.hgraph, graph = graph, graph.union()
+        if (cfg.sampler == "relational") != (self.hgraph is not None):
+            raise ValueError(
+                f"sampler {cfg.sampler!r} with a "
+                f"{type(self.hgraph or graph).__name__}: the 'relational' "
+                "sampler takes a HeteroGraph, and a HeteroGraph only it")
+        self.graph = graph
         self.rng = np.random.default_rng(cfg.seed)
         self.train_ids = (train_ids if train_ids is not None
                           else np.arange(graph.num_nodes))
@@ -345,6 +366,17 @@ class GIDSDataLoader:
         cfg = self.config
         seeds = self.rng.choice(self.train_ids, size=cfg.batch_size,
                                 replace=len(self.train_ids) < cfg.batch_size)
+        if cfg.sampler == "relational":
+            # its own stages, `sample_relations` and `build_blocks`
+            blocks = relational_sample_blocks(self.hgraph, seeds,
+                                              cfg.fanouts, self.rng,
+                                              tracer=self.tracer)
+            m = self.tracer.metrics
+            m.counter("relational.slots").inc(blocks.num_slots)
+            m.counter("relational.masked_slots").inc(blocks.num_masked)
+            for k, level in enumerate(blocks.levels):
+                m.counter(f"relational.level_rows.{k}").inc(len(level))
+            return blocks
         if cfg.sampler == "neighbor" and self.topo is not None:
             # same math, same RNG stream: blocks bit-identical to the host
             # sampler, plus per-hop priced TopologyGatherReports

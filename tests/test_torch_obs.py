@@ -75,6 +75,8 @@ def span_rows(tracer) -> list[tuple]:
 #: loader documents them
 DOCUMENTED_HOT_PATH = {
     "sample_blocks": ("plan_next",),
+    "sample_relations": ("plan_next",),
+    "build_blocks": ("plan_next",),
     "admit": ("plan_next", "execute_window"),
     "merge": ("execute_window",),
     "gather": ("execute", "execute_window"),
