@@ -48,8 +48,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    store_fill also run as the device tier calls them (MAP_GATHER_CASES,
    MAP_UNIQUE_CASES, MAP_FILL_CASE: ~97k requests of 1024-d rows, ~74.5 %
    of them read from a compacted staged buffer through its int32 map),
-   each exact against its plain version given the same map.  Times
-   are CUDA-event medians of 20 launches after warm-up, with a 256 MB
+   each exact against its plain version given the same map.
+   relation_attend (R-GAT's attention) runs every relation's block at
+   layer 0 of one 1024-seed batch of the rgat3-igbh cell, forward and
+   backward each within 1e-5 of the plain formulas in float64 by norm,
+   the backward bit-equal over two runs, timed beside the plain version
+   and the einsum path it replaced; then one R-GAT step on that batch
+   launches it forward and backward once per block with a destination.
+   Times are CUDA-event medians of 20 launches after warm-up, with a 256 MB
    buffer written and a short device sleep before each launch, so that
    every launch starts from a cold L2 and the host's enqueue time is
    never timed.
@@ -344,8 +350,14 @@ tier keeps them), the launches, and every row kernel held against its
 plain version on the path's inputs at the PARITY and MERGED_PARITY steps.
 Run it on two trees in turns in one call to compare them on one card.
 
+    python3 chip_smoke.py --relation-attend
+
+builds the kernels and runs phase 2's relation_attend rows alone.
+
 The script imports torch, numpy and the port (src/repro_torch, or
-TREE/src with --cache-ab) only.
+TREE/src with --cache-ab) only, and for the relation_attend rows the
+benchmark's graph generator (bench/families/rgat.py) and the rgat3-igbh
+configuration.
 """
 from __future__ import annotations
 
@@ -1893,6 +1905,195 @@ def kernel_flash_combine(torch, timer, gen):
         rows.append(row)
     return summary(rows[:1])                 # bf16: the serving path's
 
+
+#: R-GAT's layer 0 at the `rgat3-igbh` cell's widths: one 1024-seed batch
+#: of the cell's graph (bench/configs/rgat3-igbh.json, drawn on the card by
+#: bench/families/rgat.py) through the relational sampler, hop 2 (fanout 5)
+RGAT_BATCH = dict(seeds=1024, seed=2**31 + 7)
+#: kernel against the plain formulas in float64, as the norm of the
+#: difference over the norm of the float64 result (tests/
+#: test_torch_relation_attend.py's CARD_REL)
+RELATION_ATTEND_REL = 1e-5
+
+
+def rgat_batch(torch, np):
+    """One batch of the `rgat3-igbh` cell on the card in the model's form
+    (`RGATBlocks`), and the configuration."""
+    sys.path.insert(0, str(ROOT))
+    from bench.families import rgat as family
+    from repro_torch.graph.hetero import HeteroGraph, Relation
+    from repro_torch.models.rgat import block_tensors
+    from repro_torch.sampling.relational import relational_sample_blocks
+    cfg = json.loads((ROOT / "bench" / "configs" / "rgat3-igbh.json")
+                     .read_text())
+    rels = family.relation_csrs(cfg, torch.device("cuda"))
+    graph = HeteroGraph(cfg["nodes"], [
+        Relation(r["src"], r["name"], r["dst"], r["indptr"], r["indices"])
+        for r in rels], feature_dim=cfg["in_dim"], name=cfg["name"])
+    cites = next(r for r in rels if r["name"] == "cites")
+    rng = np.random.default_rng(RGAT_BATCH["seed"])
+    seeds = rng.choice(np.flatnonzero(np.diff(cites["indptr"])),
+                       RGAT_BATCH["seeds"], replace=False)
+    blocks = relational_sample_blocks(graph, seeds, cfg["fanouts"], rng)
+    return block_tensors(blocks, "cuda"), cfg
+
+
+def rgat_layer0(torch, batch, cfg) -> list:
+    """Every relation's block at layer 0 of `batch` as the model's
+    `_attend` indexes it: (relation, R, i_src (m, f) int32, i_dst (m,)
+    int32, mask)."""
+    out = []
+    for b in batch.hops[len(cfg["fanouts"]) - 1]:
+        if not len(b.rows):
+            continue
+        m, f = b.src.shape
+        ref, inv = torch.unique(torch.cat([b.src.reshape(-1), b.nxt]),
+                                return_inverse=True)
+        inv = inv.to(torch.int32)
+        out.append((cfg["relations"][b.relation][1], len(ref),
+                    inv[:m * f].reshape(m, f), inv[m * f:], b.mask))
+    return out
+
+
+def rgat_step_launches(torch, batch, cfg) -> dict:
+    """One forward and backward of R-GAT at the cell's widths on `batch`
+    (random features and labels): `relation_attend` launched forward and
+    backward once for every (hop, relation) block with a destination, and
+    the step's peak memory above the features."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.rgat import RGAT, RGATConfig
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    model = RGAT(RGATConfig(
+        in_dim=cfg["in_dim"], hidden_dim=cfg["hidden_dim"],
+        num_heads=cfg["num_heads"], num_classes=cfg["num_classes"],
+        fanouts=tuple(cfg["fanouts"]),
+        relations=tuple(tuple(r) for r in cfg["relations"])), device="cuda")
+    feats = torch.randn((batch.level_sizes[-1], cfg["in_dim"]),
+                        generator=gen, device="cuda")
+    y = torch.randint(0, cfg["num_classes"], (len(batch.seeds),),
+                      generator=gen, device="cuda")
+    blocks = sum(1 for hop in batch.hops for b in hop if len(b.rows))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    model.loss(feats, batch, y).backward()
+    torch.cuda.synchronize()
+    got = {k: _build.LAUNCHES[k] for k in ("relation_attend_fwd",
+                                           "relation_attend_bwd")}
+    check(got == {k: blocks for k in got},
+          f"relation_attend launches {got}, {blocks} blocks with a "
+          f"destination")
+    row = {"phase": "kernel", "name": "relation_attend_step",
+           "blocks": blocks, "launches": got,
+           "step_peak_bytes": torch.cuda.max_memory_allocated() - base}
+    emit(row)
+    return row
+
+
+def _einsum_attend(torch, z, a_src, a_dst, i_src, i_dst, mask):
+    """`RGAT._attend` after the projection as it was before the kernels:
+    the score gathers, masked softmax and einsum over z[i_src]."""
+    import torch.nn.functional as F
+    i_src, i_dst = i_src.long(), i_dst.long()
+    score_src = (z * a_src).sum(-1)
+    score_dst = (z * a_dst).sum(-1)
+    e = F.leaky_relu(score_src[i_src] + score_dst[i_dst][:, None], 0.2)
+    e = e.masked_fill(~mask[..., None], float("-inf"))
+    alpha = torch.softmax(e, dim=1)
+    return torch.einsum("mfh,mfhc->mhc", alpha, z[i_src]).reshape(
+        len(i_dst), -1)
+
+
+def kernel_relation_attend(torch, timer, np):
+    """`relation_attend` forward and backward at layer 0 of one batch of
+    the `rgat3-igbh` cell (every relation's block, H 4, C 128, f 5), each
+    held within RELATION_ATTEND_REL of the plain formulas in float64 and
+    its backward bit-equal over two runs; then one R-GAT step on the same
+    batch (`rgat_step_launches`).  Per relation: the forward and
+    the backward (the stable sort of the keys and both passes) timed
+    apart, the plain version's forward + backward, and the einsum path
+    it replaced (`einsum_ms`, forward + backward by autograd).  Bytes:
+    `bound_ms` counts every input read once and every output written once
+    (z, the indices and mask, out and lse; then z, g, out, lse again and
+    grad_z); `slot_bound_ms` counts a 512 B row a slot and head instead of
+    z once, read once forward and twice backward (z_u, then g_v by
+    source)."""
+    from repro_torch.kernels import relation_attend as ra
+    batch, cfg = rgat_batch(torch, np)
+    blocks = rgat_layer0(torch, batch, cfg)
+    H = cfg["num_heads"]
+    C = cfg["hidden_dim"] // H
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for name, R, i_src, i_dst, mask in blocks:
+        m, f = i_src.shape
+        z = torch.randn((R, H, C), generator=gen, device="cuda")
+        a_src, a_dst = (0.1 * torch.randn((H, C), generator=gen,
+                                          device="cuda") for _ in range(2))
+        g = torch.randn((m, H * C), generator=gen, device="cuda")
+        idx = (i_src, i_dst, mask)
+
+        def forward(fn):
+            leaves = [t.clone().requires_grad_() for t in (z, a_src, a_dst)]
+            return fn(*leaves, *idx), leaves
+
+        def grads(out, leaves):
+            return torch.autograd.grad(out, leaves, g)
+
+        out, leaves = forward(ra.relation_attend)
+        got = (out.detach(), *grads(out, leaves))
+        again = grads(*forward(ra.relation_attend))
+        wide = [t.double() for t in (z, a_src, a_dst)]
+        w_out, lse = ra.attend_ref(*wide, *idx)
+        want = (w_out, *ra.attend_backward_ref(g.double(), *wide, *idx,
+                                                w_out, lse))
+        torch.cuda.synchronize()
+        rel = {k: float((a.double() - b).norm() / b.norm())
+               for k, a, b in zip(("out", "grad_z", "grad_a_src",
+                                   "grad_a_dst"), got, want)}
+        check(max(rel.values()) < RELATION_ATTEND_REL,
+              f"relation_attend {name} {rel}")
+        check(all(torch.equal(a, b) for a, b in zip(got[1:], again)),
+              f"relation_attend {name}: two backward runs differ")
+        err = max(float((a.double() - b).abs().max())
+                  for a, b in zip(got, want))
+        unmasked = int(mask.sum())
+        row4, idx_bytes = H * C * 4, m * f * 5 + m * 4
+        fwd_bytes = R * row4 + idx_bytes + m * row4 + m * H * 4
+        bwd_bytes = R * row4 + idx_bytes + 2 * m * row4 + m * H * 4 + R * row4
+        slot_bytes = (3 * unmasked * row4 + idx_bytes + 5 * m * row4
+                      + 2 * m * H * 4 + R * row4)
+        fwd_ms = timer(lambda: ra.relation_attend(z, a_src, a_dst, *idx))
+        bwd_ms = timer(grads, lambda: forward(ra.relation_attend))
+        p_out, p_lse = ra.attend_ref(z, a_src, a_dst, *idx)
+        plain_ms = (timer(lambda: ra.attend_ref(z, a_src, a_dst, *idx))
+                    + timer(lambda: ra.attend_backward_ref(
+                        g, z, a_src, a_dst, *idx, p_out, p_lse)))
+        row = {"phase": "kernel", "name": "relation_attend", "relation": name,
+               "shape": [m, f, R, H, C], "unmasked": unmasked,
+               "max_abs_err": err, "rel_err": rel,
+               "kernel_ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms,
+               "bwd_ms": bwd_ms, "plain_ms": plain_ms,
+               "einsum_ms": (timer(lambda: _einsum_attend(
+                   torch, z, a_src, a_dst, *idx))
+                   + timer(grads, lambda: forward(
+                       lambda *t: _einsum_attend(torch, *t)))),
+               "library_ms": None,
+               "fwd_bound_ms": bound(fwd_bytes)["bound_ms"],
+               "slot_bound_ms": bound(slot_bytes)["bound_ms"],
+               **bound(fwd_bytes + bwd_bytes)}
+        emit(row)
+        rows.append(row)
+        del z, g, out, leaves, got, again, want, wide, p_out, p_lse
+    step = summary(rows)
+    step.update({k: sum(r[k] for r in rows)
+                 for k in ("fwd_ms", "bwd_ms", "einsum_ms", "fwd_bound_ms",
+                           "slot_bound_ms")})
+    emit({"phase": "kernel", "name": "relation_attend_layer0", **step})
+    del blocks
+    step["step_launches"] = rgat_step_launches(torch, batch, cfg)["launches"]
+    return step
 
 # -- phase 3 -------------------------------------------------------------------
 
@@ -5251,6 +5452,11 @@ SOURCES = {
                       "src/repro/kernels/flash_attention.py:30",
                       "allclose 1e-5 f32, 1e-2 bf16; the fused decode's "
                       "merge bit-equal to it"),
+    "relation_attend": ("src/repro_torch/kernels/csrc/relation_attend.cu",
+                        "none (R-GAT has no JAX original): models/rgat.py "
+                        "_attend's gather, masked softmax and einsum",
+                        "within 1e-5 of the float64 plain formulas by norm; "
+                        "backward bit-equal over two runs"),
 }
 
 
@@ -5273,6 +5479,9 @@ def main() -> int:
                         help="instead of the run, phase 2's cache rows and "
                         "phase 3 (also profiled) against the package of "
                         "TREE, a directory inside this checkout")
+    parser.add_argument("--relation-attend", action="store_true",
+                        help="instead of the run, build the kernels and run "
+                        "phase 2's relation_attend rows alone")
     parser.add_argument("--tier-ab", nargs="?", const=".", metavar="TREE",
                         help="instead of the run, phases 3 and 4 against "
                         "the package of TREE, a directory inside this "
@@ -5313,6 +5522,9 @@ def main() -> int:
     if args.tier_ab is not None:
         return tier_ab(torch, np, tree)
     card_and_build(torch)
+    if args.relation_attend:
+        kernel_relation_attend(torch, Timer(torch), np)
+        return 0
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {"segment_mean": kernel_segment_mean(torch, timer, gen),
@@ -5324,7 +5536,8 @@ def main() -> int:
                 "frontier_gather": kernel_frontier_gather(torch, timer, gen),
                 "frontier_read": kernel_frontier_read(torch, timer, np),
                 "flash_attention": kernel_flash_attention(torch, timer, gen),
-                "flash_combine": kernel_flash_combine(torch, timer, gen)}
+                "flash_combine": kernel_flash_combine(torch, timer, gen),
+                "relation_attend": kernel_relation_attend(torch, timer, np)}
     cache = {case: dict(zip(("cache_access", "cache_bucket"),
                             kernel_cache_access(torch, timer, np, **kw)))
              for case, kw in CACHE_ROWS}

@@ -29,14 +29,15 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("segment_mean", "tiered_gather", "cache_access",
-           "frontier_gather", "flash_attention")
+           "frontier_gather", "flash_attention", "relation_attend")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("segment_mean", "tiered_gather", "store_fill", "cache_bucket",
      "cache_access", "tiered_gather_unique", "frontier_gather",
-     "frontier_read", "flash_attention", "flash_combine"), 0)
+     "frontier_read", "flash_attention", "flash_combine",
+     "relation_attend_fwd", "relation_attend_bwd"), 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.kernels.relation_attend import relation_attend
 from repro_torch.models.common import ParamDef, init_params
 # `sgd_step` (p -= lr * grad) is GNN's, through `RGAT.loss`
 from repro_torch.models.gnn import GNN, sgd_step  # noqa: F401
@@ -176,20 +177,16 @@ class RGAT(nn.Module):
     def _attend(self, p, h: torch.Tensor, b: RelationTensors
                 ) -> torch.Tensor:
         """m_v,r less its bias for the destinations with an edge: each
-        referenced row of `h` projected once, scores and rows indexed by
-        slot."""
+        referenced row of `h` projected once, and the attention read from
+        the projections by slot (`kernels.relation_attend`)."""
         H = self.cfg.num_heads
         m, f = b.src.shape
         ref, inv = torch.unique(torch.cat([b.src.reshape(-1), b.nxt]),
                                 return_inverse=True)
         z = (h[ref] @ p["w"]).reshape(len(ref), H, -1)
-        score_src = (z * p["attn_src"]).sum(-1)                # (R, H)
-        score_dst = (z * p["attn_dst"]).sum(-1)
-        i_src, i_dst = inv[:m * f].reshape(m, f), inv[m * f:]
-        e = F.leaky_relu(score_src[i_src] + score_dst[i_dst][:, None], 0.2)
-        e = e.masked_fill(~b.mask[..., None], float("-inf"))
-        alpha = torch.softmax(e, dim=1)                        # (m, f, H)
-        return torch.einsum("mfh,mfhc->mhc", alpha, z[i_src]).reshape(m, -1)
+        inv = inv.to(torch.int32)
+        return relation_attend(z, p["attn_src"], p["attn_dst"],
+                               inv[:m * f].reshape(m, f), inv[m * f:], b.mask)
 
     def forward(self, feats: torch.Tensor, blocks: RGATBlocks
                 ) -> torch.Tensor:
