@@ -99,30 +99,19 @@ class HostStager:
         self._pinned: torch.Tensor | None = None
         self._copied: torch.cuda.Event | None = None
 
-    def stage(self, node_ids: np.ndarray,
-              needed: np.ndarray | None = None) -> torch.Tensor:
-        """features[node_ids] on the host, one row per id in their order.
-        With a boolean mask `needed`, only those rows are written; the
-        others hold stale bytes (zeros on the CPU).  The device tier passes
-        only the ids the card will read from staged rows, so its buffer
-        holds those rows alone, compacted."""
+    def stage(self, node_ids: np.ndarray) -> torch.Tensor:
+        """features[node_ids] on the host, one row per id in their order."""
         idx = torch.from_numpy(np.asarray(node_ids, np.int64))
-        shape = (len(idx), self.features.shape[1])
         if self.device.type == "cpu":
-            if needed is None:
-                return self.features.index_select(0, idx)
-            buf = torch.zeros(shape, dtype=self.features.dtype)
-        else:
-            if self._pinned is None or self._pinned.shape[0] < shape[0]:
-                self._pinned = torch.empty(shape, dtype=self.features.dtype,
-                                           pin_memory=True)
-            elif self._copied is not None:
-                self._copied.synchronize()
-            buf = self._pinned[:shape[0]]
-            if needed is None:
-                return torch.index_select(self.features, 0, idx, out=buf)
-        pos = torch.from_numpy(np.flatnonzero(needed))
-        return buf.index_copy_(0, pos, self.features.index_select(0, idx[pos]))
+            return self.features.index_select(0, idx)
+        shape = (len(idx), self.features.shape[1])
+        if self._pinned is None or self._pinned.shape[0] < shape[0]:
+            self._pinned = torch.empty(shape, dtype=self.features.dtype,
+                                       pin_memory=True)
+        elif self._copied is not None:
+            self._copied.synchronize()
+        return torch.index_select(self.features, 0, idx,
+                                  out=self._pinned[:shape[0]])
 
     def to_device(self, host: torch.Tensor) -> torch.Tensor:
         if self.device.type == "cpu":
@@ -152,38 +141,55 @@ def _stage_timer(device: torch.device):
     return events, mark
 
 
-def _event_split(events: dict, order: list[str]) -> dict[str, float]:
-    """ms between consecutive events of `order`, once the last completed."""
-    events[order[-1]].synchronize()
-    return {b: events[a].elapsed_time(events[b])
-            for a, b in zip(order, order[1:])}
-
-
-def _device_split(events: dict) -> dict[str, float]:
-    """The device tier's stage times from its events, once the last
-    completed: the two copies (ids and reuse counts, then the staged rows
-    and their map) as `h2d`, and the three device stages.  No pair spans
-    the host's wait for the access's verdict or its staging, and the
-    access's starts once the host has prepared its launches ("access"), so
-    that its enqueue on an idle stream is not read as the card's time."""
+def _event_split(events: dict, stages: dict[str, tuple[str, ...]]
+                 ) -> dict[str, float]:
+    """ms per stage between CUDA events, once the last ("fill") completed:
+    a stage sums the spans between its events taken in pairs."""
     events["fill"].synchronize()
+    return {stage: sum(events[a].elapsed_time(events[b])
+                       for a, b in zip(names[::2], names[1::2]))
+            for stage, names in stages.items()}
 
-    def ms(a: str, b: str) -> float:
-        return events[a].elapsed_time(events[b])
-    return {"h2d": ms("start", "ids") + ms("rows_start", "rows"),
-            "cache_access": ms("access", "cache_access"),
-            "gather": ms("rows", "gather"), "fill": ms("gather", "fill")}
+
+#: Each tier's stages between CUDA events.  The device tier's `cache_access`
+#: starts once the host has prepared the access's launches, so that their
+#: enqueue on an idle stream is not read as the card's time.
+_ROW_STORE_STAGES = {"h2d": ("start", "h2d"), "gather": ("h2d", "gather"),
+                     "fill": ("gather", "fill")}
+_DEVICE_STAGES = {"h2d": ("start", "ids", "rows_start", "rows"),
+                  "cache_access": ("access", "cache_access"),
+                  "gather": ("rows", "gather"), "fill": ("gather", "fill")}
+
+
+class _StagedRows:
+    """Rows of the requests `need` marks, staged compacted in request order
+    on the host, and the (B,) int32 map from each request to its staged row
+    (-1 where the row store serves it).  `copy()` starts both copies to the
+    device.  Every tier that serves rows stages them this way."""
+
+    def __init__(self, stager: HostStager, node_ids: np.ndarray,
+                 need: np.ndarray):
+        self.stager = stager
+        self.host = stager.stage(node_ids[need])
+        self.rows_map = np.full(len(need), -1, np.int32)
+        self.rows_map[need] = np.arange(len(self.host), dtype=np.int32)
+        self.rows_bytes = self.host.numel() * self.host.element_size()
+        self.h2d_bytes = self.rows_bytes + self.rows_map.nbytes
+
+    def copy(self) -> tuple[torch.Tensor, torch.Tensor]:
+        staged = self.stager.to_device(self.host)
+        rows_map = torch.from_numpy(self.rows_map).to(self.stager.device,
+                                                      non_blocking=True)
+        return staged, rows_map
 
 
 class _StageNeeded:
     """The device tier's staging callable for `device_store.device_gather`:
     asked once the cache access has run, it reads the access's verdict back
-    (the need and hit masks, in one copy), stages the needed requests' rows
-    compacted in request order, and starts their copy, with the map from
-    request to staged row (the identity when every request is needed).  It
-    keeps the hit mask, the staged host rows, the map's bytes and its clock
-    reads (`t_verdict` → `t_staging`: the wait for the verdict; →
-    `t_staged`: the staging) for the probe."""
+    (the need and hit masks, in one copy), and stages and copies the needed
+    requests' rows (`_StagedRows`).  It keeps the hit mask, the staged rows
+    and its clock reads (`t_verdict` → `t_staging`: the wait for the
+    verdict; → `t_staged`: the staging) for the probe."""
 
     def __init__(self, stager: HostStager, node_ids: np.ndarray, mark):
         self.stager, self.node_ids, self.mark = stager, node_ids, mark
@@ -192,17 +198,12 @@ class _StageNeeded:
         self.t_verdict = time.perf_counter()
         need, self.hits = torch.stack((need, hits)).cpu().numpy()
         self.t_staging = time.perf_counter()
-        self.host = self.stager.stage(self.node_ids[need])
-        rows_map = np.full(len(need), -1, np.int32)
-        rows_map[need] = np.arange(len(self.host), dtype=np.int32)
-        self.map_bytes = rows_map.nbytes
+        self.rows = _StagedRows(self.stager, self.node_ids, need)
         self.t_staged = time.perf_counter()
         self.mark("rows_start")
-        staged = self.stager.to_device(self.host)
-        rows_map = torch.from_numpy(rows_map).to(self.stager.device,
-                                                 non_blocking=True)
+        out = self.rows.copy()
         self.mark("rows")
-        return staged, rows_map
+        return out
 
 
 def _line_fillers(before: np.ndarray, after: np.ndarray,
@@ -236,9 +237,9 @@ class _RowStoreTier(_TierBase):
     Each probe runs the subclass's numpy access (`_access`), then:
       - `slots` = the post-probe line of each hit, -1 elsewhere (a miss, a
         bypass, or a hit whose line a later fill of its set took);
-      - the host stages `features[node_ids[i]]` for the slot -1 rows only
-        and copies the buffer to the device;
-      - `tiered_gather(slots, rows, staged)` serves every row into
+      - the host stages `features[node_ids[i]]` for the slot -1 rows only,
+        compacted with their map (`_StagedRows`), and copies both;
+      - `tiered_gather(slots, rows, staged, map)` serves every row into
         `last_rows` (a merged probe: one `tiered_gather_unique` per batch
         into `last_window_rows`);
       - `store_fill` writes each line whose tag changed during the probe
@@ -251,9 +252,9 @@ class _RowStoreTier(_TierBase):
     On CUDA, `last_split_ms` holds the last probe's time per stage (the
     numpy probe with its slots and fillers, and host staging, on the host
     clock; the rest between CUDA events) and `last_counts` its rows, hits,
-    staged rows, filled lines and H2D bytes.  An enabled `tracer` gets the
-    two host stages as wall spans `access` and `stage_host`, from the same
-    clock reads.
+    staged rows, filled lines, H2D bytes (the map included) and the staged
+    rows' bytes.  An enabled `tracer` gets the two host stages as wall spans
+    `access` and `stage_host`, from the same clock reads.
     """
 
     latency_class = "hbm"
@@ -304,13 +305,12 @@ class _RowStoreTier(_TierBase):
         slots[hits] = self.lookup_slots(node_ids[hits])
         filler = _line_fillers(before, self._flat_tags(), node_ids, slots,
                                self.name)
-        staged_mask = slots < 0
         t1 = time.perf_counter()
-        host = self._stager.stage(node_ids, needed=staged_mask)
+        rows = _StagedRows(self._stager, node_ids, slots < 0)
         t2 = time.perf_counter()
         events, mark = _stage_timer(self.device)
         mark("start")
-        staged = self._stager.to_device(host)
+        staged, rows_map = rows.copy()
         slots_d = torch.from_numpy(slots).to(self.device, non_blocking=True)
         filled = bool((filler >= 0).any())
         if filled:
@@ -321,27 +321,28 @@ class _RowStoreTier(_TierBase):
                 self.device, non_blocking=True).to(torch.int32)
         mark("h2d")
         if inverses is None:
-            self.last_rows = ops.tiered_gather(slots_d, self.rows, staged)
+            self.last_rows = ops.tiered_gather(slots_d, self.rows, staged,
+                                               rows_map)
             self.last_window_rows = None
         else:
             self.last_rows = None
             self.last_window_rows = [
-                ops.tiered_gather_unique(slots_d, self.rows, staged, inv)
+                ops.tiered_gather_unique(slots_d, self.rows, staged, inv,
+                                         rows_map)
                 for inv in torch.split(inv_d, [len(i) for i in inverses])]
         mark("gather")
         if filled:                  # after the gather: it reads no new line
-            ops.store_fill(self.rows, filler_d, staged)
+            ops.store_fill(self.rows, filler_d, staged, rows_map)
         mark("fill")
-        row_bytes = host.shape[1] * host.element_size()
         self.last_counts = {"rows": len(node_ids), "hits": int(hits.sum()),
-                            "staged_rows": int(staged_mask.sum()),
+                            "staged_rows": rows.host.shape[0],
                             "filled_lines": int((filler >= 0).sum()),
-                            "h2d_bytes": host.shape[0] * row_bytes,
-                            "needed_bytes": int(staged_mask.sum()) * row_bytes}
+                            "h2d_bytes": rows.h2d_bytes,
+                            "needed_bytes": rows.rows_bytes}
         if events:
             self.last_split_ms = {"probe": (t1 - t0) * 1e3,
                                   "stage_host": (t2 - t1) * 1e3} \
-                | _event_split(events, ["start", "h2d", "gather", "fill"])
+                | _event_split(events, _ROW_STORE_STAGES)
         if self.tracer.enabled:
             self.tracer.record("access", t0, t1, rows=len(node_ids),
                                hits=self.last_counts["hits"])
@@ -591,12 +592,10 @@ class DeviceStoreTier(_TierBase):
     Each probe copies the ids and their reuse counts to the device and runs
     the cache access there first.  It then reads back the access's verdict
     (which requests the card reads from staged rows, and the hit mask), and
-    stages and copies only those rows, compacted in request order, through
-    a pinned buffer and a non-blocking copy on CUDA, with an int32 map from
-    each request to its staged row (-1 where the row store serves it).
-    These are the misses and bypasses: a hit's row is never staged (on a
-    cold probe every row is, and the map is the identity).  The gather and
-    the fill read staged rows through the map.
+    stages and copies only those rows with their map (`_StagedRows`): the
+    misses and bypasses.  A hit's row is never staged (on a cold probe
+    every row is, and the map is the identity).  The gather and the fill
+    read staged rows through the map.
     `last_rows` holds every requested row as a device tensor, the real data
     path of this tier.  No shape bucket is needed: requests are not padded.
     A merged-window probe (`probe_merged`) does the same once over the
@@ -698,14 +697,13 @@ class DeviceStoreTier(_TierBase):
                 torch.split(inv_d, [len(i) for i in inverses]), mark=mark)
             self.last_rows, self.last_window_rows = None, rows_list
         t2 = time.perf_counter()
-        split = _device_split(events) if events else {}  # waits for the card
+        split = _event_split(events, _DEVICE_STAGES) if events else {}
         t3 = time.perf_counter()
-        staged_bytes = stage.host.numel() * stage.host.element_size()
         self.last_counts = {
             "rows": len(ids), "hits": int(stage.hits.sum()),
-            "staged_rows": stage.host.shape[0],
-            "h2d_bytes": staged_bytes + stage.map_bytes,
-            "needed_bytes": staged_bytes}
+            "staged_rows": stage.rows.host.shape[0],
+            "h2d_bytes": stage.rows.h2d_bytes,
+            "needed_bytes": stage.rows.rows_bytes}
         if split:
             wait_ms = (stage.t_staging - stage.t_verdict + t3 - t2) * 1e3
             self.last_split_ms = {
@@ -717,8 +715,8 @@ class DeviceStoreTier(_TierBase):
             tr.record("future_counts", t0, t1, ids=n_sorted)
             tr.record("probe_wait", stage.t_verdict, stage.t_staging)
             tr.record("stage_host", stage.t_staging, stage.t_staged,
-                      rows=len(ids), staged=stage.host.shape[0],
-                      bytes=staged_bytes)
+                      rows=len(ids), staged=stage.rows.host.shape[0],
+                      bytes=stage.rows.rows_bytes)
             tr.record("probe_wait", t2, t3)
         return stage.hits
 

@@ -140,3 +140,52 @@ def test_device_tier_stages_only_the_misses_on_the_card():
                               "cache_access", "gather", "fill", "probe_wait"}
         assert all(v >= 0.0 for v in split.values())
     assert compacted >= 6
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("merged", [False, True], ids=["batch", "window"])
+def test_row_store_tier_stages_only_its_slot_misses_on_the_card(merged):
+    """A `DeviceCacheTier` (the host planes' row store) on the card over a
+    run of skewed batches: every probe stages and copies only the requests
+    its row store does not serve, its rows equal `features[ids]` bit for
+    bit, every resident line holds its tag's row, and its split keeps its
+    five keys, each a time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.software_cache import WindowBufferedCache
+    from repro_torch.core.tiers import DeviceCacheTier
+
+    rng = np.random.default_rng(13)
+    feats = rng.standard_normal((5000, 1024)).astype(np.float32)
+    host = torch.from_numpy(feats)
+    tier = DeviceCacheTier(WindowBufferedCache(512, 8), feats, device="cuda")
+    compacted = 0
+    for _ in range(12):
+        ids = np.unique(np.concatenate([rng.integers(0, 300, 400),
+                                        rng.integers(0, 5000, 400)]))
+        if merged:
+            inverse = rng.integers(0, len(ids), 900)
+            hits = tier.probe_merged(ids, np.bincount(inverse,
+                                                      minlength=len(ids)),
+                                     [inverse])
+            assert torch.equal(tier.last_window_rows[0].cpu(),
+                               host[ids[inverse]])
+        else:
+            hits = tier.probe(ids)
+            assert torch.equal(tier.last_rows.cpu(), host[ids])
+        demoted = hits & (tier.lookup_slots(ids) < 0)
+        staged = len(ids) - int(hits.sum()) + int(demoted.sum())
+        counts = tier.last_counts
+        assert counts["staged_rows"] == staged
+        assert counts["needed_bytes"] == staged * 1024 * 4
+        assert counts["h2d_bytes"] == counts["needed_bytes"] + 4 * len(ids)
+        compacted += 0 < staged < len(ids)
+        tags = tier.cache.tags.reshape(-1)
+        lines = np.flatnonzero(tags >= 0)
+        assert torch.equal(tier.device_rows()[torch.from_numpy(lines)
+                                              .cuda()].cpu(),
+                           host[tags[lines]])
+        split = tier.last_split_ms
+        assert set(split) == {"probe", "stage_host", "h2d", "gather", "fill"}
+        assert all(v >= 0.0 for v in split.values())
+    assert compacted >= 6

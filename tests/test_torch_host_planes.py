@@ -208,7 +208,8 @@ def test_row_store_invariant_after_every_probe(plane, monkeypatch):
     assert tier.cache.stats.evictions > 0
     for p in probes:
         assert p["staged_rows"] >= p["rows"] - p["hits"]   # + demoted hits
-        assert p["needed_bytes"] <= p["h2d_bytes"] == p["rows"] * DIM * 4
+        assert p["needed_bytes"] == p["staged_rows"] * DIM * 4
+        assert p["h2d_bytes"] == p["needed_bytes"] + 4 * p["rows"]
 
 
 def _same_set(cache, n):
@@ -233,7 +234,9 @@ def test_row_store_demoted_hit_and_bypass():
     hits = tier.probe(np.array([a, b]))
     np.testing.assert_array_equal(hits, [True, False])
     assert tier.lookup_slots(np.array([a]))[0] == -1          # demoted
-    assert tier.last_counts["staged_rows"] == 2
+    counts = tier.last_counts
+    assert counts["staged_rows"] == 2
+    assert counts["h2d_bytes"] == counts["needed_bytes"] + 4 * 2
     np.testing.assert_array_equal(tier.last_rows.numpy(), feats[[a, b]])
     _assert_row_store(tier, feats)
 
@@ -250,6 +253,8 @@ def test_row_store_demoted_hit_and_bypass():
     hits = tier.probe(np.array([b]))
     assert not hits.any() and tier.cache.stats.bypasses == 1
     assert tier.last_counts["filled_lines"] == 0
+    assert tier.last_counts["staged_rows"] == 1
+    assert tier.last_counts["h2d_bytes"] == feats.shape[1] * 4 + 4
     np.testing.assert_array_equal(tier.last_rows.numpy(), feats[[b]])
     assert tier.lookup_slots(np.array([a, b])).tolist()[1] == -1
     _assert_row_store(tier, feats)
