@@ -54,7 +54,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    backward each within 1e-5 of the plain formulas in float64 by norm,
    the backward bit-equal over two runs, timed beside the plain version
    and the einsum path it replaced; then one R-GAT step on that batch
-   launches it forward and backward once per block with a destination.
+   launches it forward and backward once per block with a destination
+   and projects only the rows the slots name (`RGAT.last_rows`); then
+   layer 0 of that batch, forward and backward, through the model's path
+   (destinations scored through W folded into a_dst) and through the path
+   before the fold (destination rows projected too), each held to the
+   latter in float64: device ms, matrix-product ms, destination-score ms,
+   rows projected.
    Times are CUDA-event medians of 20 launches after warm-up, with a 256 MB
    buffer written and a short device sleep before each launch, so that
    every launch starts from a cold L2 and the host's enqueue time is
@@ -352,7 +358,8 @@ Run it on two trees in turns in one call to compare them on one card.
 
     python3 chip_smoke.py --relation-attend
 
-builds the kernels and runs phase 2's relation_attend rows alone.
+builds the kernels and runs phase 2's relation_attend rows alone (the
+kernel rows, the step's launches and rows, layer 0 both ways).
 
 The script imports torch, numpy and the port (src/repro_torch, or
 TREE/src with --cache-ab) only, and for the relation_attend rows the
@@ -1914,6 +1921,8 @@ RGAT_BATCH = dict(seeds=1024, seed=2**31 + 7)
 #: difference over the norm of the float64 result (tests/
 #: test_torch_relation_attend.py's CARD_REL)
 RELATION_ATTEND_REL = 1e-5
+#: profiled runs of each path of R-GAT's layer 0 (`rgat_layer0_paths`)
+PROFILED = 3
 
 
 def rgat_batch(torch, np):
@@ -1940,34 +1949,39 @@ def rgat_batch(torch, np):
 
 def rgat_layer0(torch, batch, cfg) -> list:
     """Every relation's block at layer 0 of `batch` as the model's
-    `_attend` indexes it: (relation, R, i_src (m, f) int32, i_dst (m,)
-    int32, mask)."""
+    `_attend` indexes it: (relation, R, i_src (m, f) int32, mask), R the
+    unique rows its slots name."""
     out = []
     for b in batch.hops[len(cfg["fanouts"]) - 1]:
         if not len(b.rows):
             continue
-        m, f = b.src.shape
-        ref, inv = torch.unique(torch.cat([b.src.reshape(-1), b.nxt]),
-                                return_inverse=True)
-        inv = inv.to(torch.int32)
+        ref, inv = torch.unique(b.src, return_inverse=True)
         out.append((cfg["relations"][b.relation][1], len(ref),
-                    inv[:m * f].reshape(m, f), inv[m * f:], b.mask))
+                    inv.to(torch.int32), b.mask))
     return out
+
+
+def rgat_model(torch, cfg):
+    """R-GAT at the `rgat3-igbh` cell's widths on the card, default
+    initialisation."""
+    from repro_torch.models.rgat import RGAT, RGATConfig
+    return RGAT(RGATConfig(
+        in_dim=cfg["in_dim"], hidden_dim=cfg["hidden_dim"],
+        num_heads=cfg["num_heads"], num_classes=cfg["num_classes"],
+        fanouts=tuple(cfg["fanouts"]),
+        relations=tuple(tuple(r) for r in cfg["relations"])), device="cuda")
 
 
 def rgat_step_launches(torch, batch, cfg) -> dict:
     """One forward and backward of R-GAT at the cell's widths on `batch`
     (random features and labels): `relation_attend` launched forward and
-    backward once for every (hop, relation) block with a destination, and
-    the step's peak memory above the features."""
+    backward once for every (hop, relation) block with a destination, each
+    relation projecting exactly the unique rows its slots name
+    (`RGAT.last_rows`), the step's peak memory above the features, and
+    then its device time (`rgat_step_profile`)."""
     from repro_torch.kernels import _build
-    from repro_torch.models.rgat import RGAT, RGATConfig
     gen = torch.Generator(device="cuda").manual_seed(13)
-    model = RGAT(RGATConfig(
-        in_dim=cfg["in_dim"], hidden_dim=cfg["hidden_dim"],
-        num_heads=cfg["num_heads"], num_classes=cfg["num_classes"],
-        fanouts=tuple(cfg["fanouts"]),
-        relations=tuple(tuple(r) for r in cfg["relations"])), device="cuda")
+    model = rgat_model(torch, cfg)
     feats = torch.randn((batch.level_sizes[-1], cfg["in_dim"]),
                         generator=gen, device="cuda")
     y = torch.randint(0, cfg["num_classes"], (len(batch.seeds),),
@@ -1980,29 +1994,270 @@ def rgat_step_launches(torch, batch, cfg) -> dict:
     model.loss(feats, batch, y).backward()
     torch.cuda.synchronize()
     got = {k: _build.LAUNCHES[k] for k in ("relation_attend_fwd",
-                                           "relation_attend_bwd")}
-    check(got == {k: blocks for k in got},
-          f"relation_attend launches {got}, {blocks} blocks with a "
-          f"destination")
+                                           "relation_attend_bwd",
+                                           "fold_scores_fwd",
+                                           "fold_scores_bwd")}
+    L = len(cfg["fanouts"])
+    check(got == {k: blocks if "relation" in k else L for k in got},
+          f"launches {got}: relation_attend once per block with a "
+          f"destination ({blocks}), fold_scores once per layer")
+    for l, rows in enumerate(model.last_rows):
+        want = {model.names[b.relation]: len(torch.unique(b.src))
+                for b in batch.hops[L - 1 - l] if len(b.rows)}
+        check(rows["projected"] == want,
+              f"layer {l} projected {rows['projected']}, its slots name "
+              f"{want}")
     row = {"phase": "kernel", "name": "relation_attend_step",
-           "blocks": blocks, "launches": got,
-           "step_peak_bytes": torch.cuda.max_memory_allocated() - base}
+           "blocks": blocks, "launches": got, "rows": model.last_rows,
+           "step_peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "profile": rgat_step_profile(torch, lambda: model.loss(
+               feats, batch, y).backward())}
     emit(row)
     return row
 
 
-def _einsum_attend(torch, z, a_src, a_dst, i_src, i_dst, mask):
+def rgat_step_profile(torch, step) -> dict:
+    """Where one R-GAT forward and backward spends the card's time:
+    torch.profiler over PROFILED calls of `step`, a call's busy ms (the
+    union of kernels, copies and memsets), its kernels' ms by class (the
+    matrix products, `relation_attend`, `fold_scores`, the rest) and its
+    top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    trace = ROOT / "build" / "rgat_step_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            step()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    dev = _device_busy(trace)
+    trace.unlink()
+    by_class: dict = {}
+    for name, ms in dev["kernel_ms_by_name"].items():
+        c = next((k for k in ("relation_attend", "fold_scores") if k in name),
+                 _kernel_class(name))
+        by_class[c] = by_class.get(c, 0.0) + ms / PROFILED
+    top = sorted(dev["kernel_ms_by_name"].items(), key=lambda kv: -kv[1])
+    return {"busy_ms": dev["busy_ms"] / PROFILED,
+            "kernel_ms_by_class": by_class,
+            "top_kernels_ms": [[n[:90], ms / PROFILED] for n, ms in top[:10]]}
+
+
+def _einsum_attend(torch, z, a_src, s_dst, i_src, mask):
     """`RGAT._attend` after the projection as it was before the kernels:
     the score gathers, masked softmax and einsum over z[i_src]."""
     import torch.nn.functional as F
-    i_src, i_dst = i_src.long(), i_dst.long()
+    i_src = i_src.long()
     score_src = (z * a_src).sum(-1)
-    score_dst = (z * a_dst).sum(-1)
-    e = F.leaky_relu(score_src[i_src] + score_dst[i_dst][:, None], 0.2)
+    e = F.leaky_relu(score_src[i_src] + s_dst[:, None], 0.2)
     e = e.masked_fill(~mask[..., None], float("-inf"))
     alpha = torch.softmax(e, dim=1)
     return torch.einsum("mfh,mfhc->mhc", alpha, z[i_src]).reshape(
-        len(i_dst), -1)
+        len(s_dst), -1)
+
+
+def rgat_layer0_paths(torch, timer, batch, cfg) -> dict:
+    """R-GAT's layer 0 on `batch`, forward and the backward into its
+    parameters, two ways on the same features and weights: the model's
+    (`RGAT._dst_scores` once over level 2's rows, then per relation its
+    slots' unique rows projected and `relation_attend`), and the path
+    before the fold (per relation the unique rows of its slots and its
+    destinations projected, each destination scored from its projected
+    row, a_dst . z[i_dst], then the same kernel).  Both are held to the
+    path before the fold in float64 (the einsum attention, no kernel): the
+    output within RELATION_ATTEND_REL by norm, and every leaf's gradient
+    within the cell's `grad_gap_worst` limit.  A slot whose score lies
+    within rounding of the LeakyReLU's kink may be taken on the other side
+    than in float64, and one such slot moves a leaf by up to ~1e-3
+    (`PERF.md` §2): `kink_flips` counts, per path, the unmasked slots whose
+    side differs from float64's.  Per path: `ms` (CUDA
+    events, the median of REPS runs from a cold L2, the host's syncs in
+    `torch.unique` included), and over PROFILED runs under torch.profiler
+    the card's busy ms, the matrix products' ms (`_kernel_class`
+    "matmul") and the top kernels, a run each; the rows projected; for the
+    model's path the destination scores alone (`score`: `_dst_scores` and
+    its backward into the layer's W_r and a_dst,r, as the fold runs in the
+    step)."""
+    import copy
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.relation_attend import relation_attend
+    from repro_torch.models import rgat as rgat_module
+    k = len(cfg["fanouts"]) - 1
+    H = cfg["num_heads"]
+    model = rgat_model(torch, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    feats = torch.randn((batch.level_sizes[-1], cfg["in_dim"]),
+                        generator=gen, device="cuda")
+    g = torch.randn((batch.level_sizes[k], cfg["hidden_dim"]), generator=gen,
+                    device="cuda")
+    blocks = [b for b in batch.hops[k] if len(b.rows)]
+    pos = batch.level_pos[k]
+
+    def folded(mdl, x, attend=None):
+        s_dst = mdl._dst_scores(0, x, pos)
+        out = x.new_zeros((len(pos), cfg["hidden_dim"]))
+        rows = 0
+        for b in blocks:
+            p = mdl.layer[0][mdl.names[b.relation]]
+            msg, n = mdl._attend(p, x, b, s_dst[b.rows, b.relation])
+            out.index_add_(0, b.rows, msg)
+            rows += n
+        return out, rows
+
+    def before(mdl, x, attend=relation_attend):
+        out = x.new_zeros((len(pos), cfg["hidden_dim"]))
+        rows = 0
+        for b in blocks:
+            p = mdl.layer[0][mdl.names[b.relation]]
+            m, f = b.src.shape
+            ref, inv = torch.unique(torch.cat([b.src.reshape(-1), b.nxt]),
+                                    return_inverse=True)
+            z = (x[ref] @ p["w"]).reshape(len(ref), H, -1)
+            s_dst = (z[inv[m * f:]] * p["attn_dst"]).sum(-1)
+            i_src = inv[:m * f].reshape(m, f).to(torch.int32)
+            out.index_add_(0, b.rows, attend(z, p["attn_src"], s_dst, i_src,
+                                             b.mask))
+            rows += len(ref)
+        return out, rows
+
+    def run(path, mdl=model, x=feats, dy=g):
+        out, _ = path(mdl, x)
+        leaves = [p for name in mdl.names for p in mdl.layer[0][name].values()]
+        return [out.detach(), *torch.autograd.grad(out, leaves, dy,
+                                                   allow_unused=True)]
+
+    def kink_sides(path, mdl, x):
+        """The LeakyReLU side of every unmasked slot's score as `path`
+        hands the kernel its inputs (the model's `relation_attend` swapped
+        for a recorder while it runs)."""
+        sides = []
+
+        def record(z, a_src, s_dst, i_src, mask):
+            e = (z * a_src).sum(-1)[i_src.long()] + s_dst[:, None]
+            sides.append((e > 0)[mask])
+            return z.new_zeros((len(s_dst), z.shape[1] * z.shape[2]))
+        kept, rgat_module.relation_attend = rgat_module.relation_attend, record
+        try:
+            with torch.no_grad():
+                path(mdl, x, record)
+        finally:
+            rgat_module.relation_attend = kept
+        return torch.cat(sides)
+
+    wide = copy.deepcopy(model).double()
+    want = run(lambda mdl, x: before(
+        mdl, x, lambda *t: _einsum_attend(torch, *t)), wide, feats.double(),
+        g.double())
+    want_sides = kink_sides(before, wide, feats.double())
+    del wide
+    paths = (("folded", folded), ("before", before))
+    rel = {name: [float((a.double() - b).norm() / b.norm())
+                  for a, b in zip(run(path), want) if b is not None]
+           for name, path in paths}
+    flips = {name: int((kink_sides(path, model, feats) != want_sides).sum())
+             for name, path in paths}
+    del want
+    worst = cfg["limits"]["grad_gap_worst"]
+    check(all(r[0] < RELATION_ATTEND_REL and max(r) < worst
+              for r in rel.values()),
+          f"layer 0 against float64: {rel}, kink flips {flips}")
+    fold_leaves = [model.layer[0][name][k_] for name in model.names
+                   for k_ in ("w", "attn_dst")]
+    g_s = torch.randn((len(pos), len(model.names), H), generator=gen,
+                      device="cuda")
+    row = {"phase": "kernel", "name": "relation_attend_layer0_paths",
+           "card": card_line(), "blocks": len(blocks),
+           "scored_rows": len(pos), "kink_flips": flips}
+    trace = ROOT / "build" / "rgat_layer0_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    timed = {"folded": lambda: run(folded), "before": lambda: run(before),
+             "score": lambda: torch.autograd.grad(
+                 model._dst_scores(0, feats, pos), fold_leaves, g_s)}
+    for name, fn in timed.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        dev = _device_busy(trace)
+        trace.unlink()
+        by_name = dev["kernel_ms_by_name"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
+
+        def ms_of(keep):
+            return sum(ms for n, ms in by_name.items() if keep(n)) / PROFILED
+        row[name] = {
+            "ms": timer(fn), "busy_ms": dev["busy_ms"] / PROFILED,
+            "matmul_ms": ms_of(lambda n: _kernel_class(n) == "matmul"),
+            "relation_attend_ms": ms_of(lambda n: "relation_attend" in n),
+            "fold_scores_ms": ms_of(lambda n: "fold_scores" in n),
+            "top_kernels_ms": [[n[:90], ms / PROFILED] for n, ms in top[:8]]}
+    for name, path in paths:
+        row[name].update(rows=path(model, feats)[1], rel_err_f64=rel[name])
+    emit(row)
+    return row
+
+
+def kernel_fold_scores(torch, timer, batch, cfg) -> dict:
+    """`fold_scores` (R-GAT's destination scores through every relation's
+    W_r folded into its a_dst) at layer 0's and layer 1's shapes of
+    `batch`: forward and backward (grad_ut, and grad_h at layer 1, where h
+    takes a gradient) within RELATION_ATTEND_REL of the plain formulas in
+    float64, the backward bit-equal over two runs, each timed beside the
+    plain version (the rows gathered, then the products).  `bound_ms`:
+    h's n rows read forward and backward, the scores written and their
+    gradient read, ut and grad_ut, grad_h's n rows written at layer 1."""
+    from repro_torch.kernels import relation_attend as ra
+    L = len(cfg["fanouts"])
+    J = len(cfg["relations"]) * cfg["num_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for layer in (0, 1):
+        k = L - 1 - layer
+        d = cfg["in_dim"] if layer == 0 else cfg["hidden_dim"]
+        pos = batch.level_pos[k]
+        n, needs_h = len(pos), layer > 0
+        h = torch.randn((batch.level_sizes[k + 1], d), generator=gen,
+                        device="cuda")
+        ut = torch.randn((J, d), generator=gen, device="cuda") / d ** 0.5
+        g = torch.randn((n, J), generator=gen, device="cuda")
+        got = [ra.fold_scores(h, pos, ut),
+               *ra._scores_backward(g, h, pos, ut, needs_h)]
+        again = ra._scores_backward(g, h, pos, ut, needs_h)
+        wide = [h.double(), pos, ut.double()]
+        want = [ra.fold_scores_ref(*wide),
+                *ra.fold_scores_backward_ref(g.double(), *wide, needs_h)]
+        torch.cuda.synchronize()
+        rel = {name: float((a.double() - b).norm() / b.norm())
+               for name, a, b in zip(("scores", "grad_h", "grad_ut"), got,
+                                     want) if b is not None}
+        check(max(rel.values()) < RELATION_ATTEND_REL,
+              f"fold_scores layer {layer} {rel}")
+        check(all(a is b or torch.equal(a, b)
+                  for a, b in zip(got[1:], again)),
+              f"fold_scores layer {layer}: two backward runs differ")
+        nbytes = 2 * n * d * 4 + 2 * n * 8 + 2 * n * J * 4 + 2 * J * d * 4
+        flops = 4 * n * d * J
+        if needs_h:
+            nbytes, flops = nbytes + n * d * 4, flops + 2 * n * d * J
+        fwd_ms = timer(lambda: ra.fold_scores(h, pos, ut))
+        bwd_ms = timer(lambda: ra._scores_backward(g, h, pos, ut, needs_h))
+        row = {"phase": "kernel", "name": "fold_scores", "layer": layer,
+               "shape": [n, d, J, len(h)], "rel_err": rel,
+               "kernel_ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms,
+               "bwd_ms": bwd_ms,
+               "plain_ms": (timer(lambda: ra.fold_scores_ref(h, pos, ut))
+                            + timer(lambda: ra.fold_scores_backward_ref(
+                                g, h, pos, ut, needs_h))),
+               **bound(nbytes, flops)}
+        emit(row)
+        rows.append(row)
+        del h, got, again, wide, want
+    return {"fold_scores_ms": sum(r["kernel_ms"] for r in rows),
+            "fold_scores_plain_ms": sum(r["plain_ms"] for r in rows),
+            "fold_scores_bound_ms": sum(r["bound_ms"] for r in rows)}
 
 
 def kernel_relation_attend(torch, timer, np):
@@ -2010,15 +2265,16 @@ def kernel_relation_attend(torch, timer, np):
     the `rgat3-igbh` cell (every relation's block, H 4, C 128, f 5), each
     held within RELATION_ATTEND_REL of the plain formulas in float64 and
     its backward bit-equal over two runs; then one R-GAT step on the same
-    batch (`rgat_step_launches`).  Per relation: the forward and
-    the backward (the stable sort of the keys and both passes) timed
-    apart, the plain version's forward + backward, and the einsum path
-    it replaced (`einsum_ms`, forward + backward by autograd).  Bytes:
-    `bound_ms` counts every input read once and every output written once
-    (z, the indices and mask, out and lse; then z, g, out, lse again and
-    grad_z); `slot_bound_ms` counts a 512 B row a slot and head instead of
-    z once, read once forward and twice backward (z_u, then g_v by
-    source)."""
+    batch (`rgat_step_launches`) and its layer 0 both ways
+    (`rgat_layer0_paths`).  Per relation: the forward and the backward
+    (the stable sort of the keys and both passes) timed apart, the plain
+    version's forward + backward, and the einsum path it replaced
+    (`einsum_ms`, forward + backward by autograd).  Bytes: `bound_ms`
+    counts every input read once and every output written once (z, the
+    indices and mask, s_dst, out and lse; then z, s_dst, g, out, lse again,
+    grad_z and grad_s_dst); `slot_bound_ms` counts a 512 B row a slot and
+    head instead of z once, read once forward and twice backward (z_u,
+    then g_v by source)."""
     from repro_torch.kernels import relation_attend as ra
     batch, cfg = rgat_batch(torch, np)
     blocks = rgat_layer0(torch, batch, cfg)
@@ -2026,16 +2282,16 @@ def kernel_relation_attend(torch, timer, np):
     C = cfg["hidden_dim"] // H
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = []
-    for name, R, i_src, i_dst, mask in blocks:
+    for name, R, i_src, mask in blocks:
         m, f = i_src.shape
         z = torch.randn((R, H, C), generator=gen, device="cuda")
-        a_src, a_dst = (0.1 * torch.randn((H, C), generator=gen,
-                                          device="cuda") for _ in range(2))
+        a_src = 0.1 * torch.randn((H, C), generator=gen, device="cuda")
+        s_dst = torch.randn((m, H), generator=gen, device="cuda")
         g = torch.randn((m, H * C), generator=gen, device="cuda")
-        idx = (i_src, i_dst, mask)
+        idx = (i_src, mask)
 
         def forward(fn):
-            leaves = [t.clone().requires_grad_() for t in (z, a_src, a_dst)]
+            leaves = [t.clone().requires_grad_() for t in (z, a_src, s_dst)]
             return fn(*leaves, *idx), leaves
 
         def grads(out, leaves):
@@ -2044,14 +2300,14 @@ def kernel_relation_attend(torch, timer, np):
         out, leaves = forward(ra.relation_attend)
         got = (out.detach(), *grads(out, leaves))
         again = grads(*forward(ra.relation_attend))
-        wide = [t.double() for t in (z, a_src, a_dst)]
+        wide = [t.double() for t in (z, a_src, s_dst)]
         w_out, lse = ra.attend_ref(*wide, *idx)
         want = (w_out, *ra.attend_backward_ref(g.double(), *wide, *idx,
                                                 w_out, lse))
         torch.cuda.synchronize()
         rel = {k: float((a.double() - b).norm() / b.norm())
                for k, a, b in zip(("out", "grad_z", "grad_a_src",
-                                   "grad_a_dst"), got, want)}
+                                   "grad_s_dst"), got, want)}
         check(max(rel.values()) < RELATION_ATTEND_REL,
               f"relation_attend {name} {rel}")
         check(all(torch.equal(a, b) for a, b in zip(got[1:], again)),
@@ -2059,24 +2315,25 @@ def kernel_relation_attend(torch, timer, np):
         err = max(float((a.double() - b).abs().max())
                   for a, b in zip(got, want))
         unmasked = int(mask.sum())
-        row4, idx_bytes = H * C * 4, m * f * 5 + m * 4
-        fwd_bytes = R * row4 + idx_bytes + m * row4 + m * H * 4
-        bwd_bytes = R * row4 + idx_bytes + 2 * m * row4 + m * H * 4 + R * row4
-        slot_bytes = (3 * unmasked * row4 + idx_bytes + 5 * m * row4
-                      + 2 * m * H * 4 + R * row4)
-        fwd_ms = timer(lambda: ra.relation_attend(z, a_src, a_dst, *idx))
+        row4, idx_bytes, score4 = H * C * 4, m * f * 5, m * H * 4
+        fwd_bytes = R * row4 + idx_bytes + score4 + m * row4 + score4
+        bwd_bytes = (R * row4 + idx_bytes + score4 + 2 * m * row4 + score4
+                     + R * row4 + score4)
+        slot_bytes = (3 * unmasked * row4 + idx_bytes + 3 * m * row4
+                      + 5 * score4 + R * row4)
+        fwd_ms = timer(lambda: ra.relation_attend(z, a_src, s_dst, *idx))
         bwd_ms = timer(grads, lambda: forward(ra.relation_attend))
-        p_out, p_lse = ra.attend_ref(z, a_src, a_dst, *idx)
-        plain_ms = (timer(lambda: ra.attend_ref(z, a_src, a_dst, *idx))
+        p_out, p_lse = ra.attend_ref(z, a_src, s_dst, *idx)
+        plain_ms = (timer(lambda: ra.attend_ref(z, a_src, s_dst, *idx))
                     + timer(lambda: ra.attend_backward_ref(
-                        g, z, a_src, a_dst, *idx, p_out, p_lse)))
+                        g, z, a_src, s_dst, *idx, p_out, p_lse)))
         row = {"phase": "kernel", "name": "relation_attend", "relation": name,
                "shape": [m, f, R, H, C], "unmasked": unmasked,
                "max_abs_err": err, "rel_err": rel,
                "kernel_ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms,
                "bwd_ms": bwd_ms, "plain_ms": plain_ms,
                "einsum_ms": (timer(lambda: _einsum_attend(
-                   torch, z, a_src, a_dst, *idx))
+                   torch, z, a_src, s_dst, *idx))
                    + timer(grads, lambda: forward(
                        lambda *t: _einsum_attend(torch, *t)))),
                "library_ms": None,
@@ -2092,7 +2349,12 @@ def kernel_relation_attend(torch, timer, np):
                            "slot_bound_ms")})
     emit({"phase": "kernel", "name": "relation_attend_layer0", **step})
     del blocks
+    step.update(kernel_fold_scores(torch, timer, batch, cfg))
+    torch.cuda.empty_cache()
     step["step_launches"] = rgat_step_launches(torch, batch, cfg)["launches"]
+    torch.cuda.empty_cache()
+    paths = rgat_layer0_paths(torch, timer, batch, cfg)
+    step.update({f"layer0_{k}": paths[k] for k in ("folded", "before")})
     return step
 
 # -- phase 3 -------------------------------------------------------------------

@@ -37,7 +37,8 @@ LAUNCHES: dict[str, int] = dict.fromkeys(
     ("segment_mean", "tiered_gather", "store_fill", "cache_bucket",
      "cache_access", "tiered_gather_unique", "frontier_gather",
      "frontier_read", "flash_attention", "flash_combine",
-     "relation_attend_fwd", "relation_attend_bwd"), 0)
+     "relation_attend_fwd", "relation_attend_bwd", "fold_scores_fwd",
+     "fold_scores_bwd"), 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 

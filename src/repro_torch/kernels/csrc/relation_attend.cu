@@ -1,11 +1,14 @@
 // relation_attend: R-GAT's attention over one relation's block, forward and
-// backward, reading the projected rows z (R, H, C) by index.  For a
-// destination v with slots j (source rows i_src[v, j], mask[v, j]) and head
-// h:
+// backward, reading the projected source rows z (R, H, C) by index.  For a
+// destination v with slots j (source rows i_src[v, j], mask[v, j]), its
+// score s_dst[v, h] and head h:
 //
-//   e_vj  = LeakyReLU_0.2(a_src[h] . z[i_src[v, j], h] + a_dst[h] . z[i_dst[v], h])
+//   e_vj  = LeakyReLU_0.2(a_src[h] . z[i_src[v, j], h] + s_dst[v, h])
 //   alpha = softmax over v's unmasked slots of e_vj
 //   agg[v, h] = sum_j alpha_vj z[i_src[v, j], h]
+//
+// s_dst = a_dst . (W x_v) per head comes in from the caller, which folds
+// W into a_dst (`models/rgat.py`), so z holds source rows only.
 //
 // Replaces no TPU kernel: R-GAT has no JAX original.  It was added because
 // the torch ops it replaces (`models/rgat.py` `_attend` after the
@@ -17,8 +20,8 @@
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes.  A slot costs ~10 flops a float
 // of its row against 4 bytes read.  The least traffic is z read once (R rows
-// of H * C floats), the indices and mask, agg (m, H * C) written; the
-// backward reads z, agg and its gradient once and writes grad_z.  A slot's
+// of H * C floats), the indices, mask and s_dst, agg (m, H * C) written;
+// the backward reads z, agg and its gradient once and writes grad_z.  A slot's
 // row that several destinations share is read again from L2 where it is
 // still there, so the traffic lies between the unique rows and one 512 B
 // row a slot and head.
@@ -30,8 +33,7 @@
 // is online (running max, running sum, float4 accumulator, as flash
 // attention over keys), in slot order: no score tensor, one pass.  It
 // writes agg and the log-sum-exp (m, H) for the backward, and the sort key
-// of every slot (its source row, or R where masked) and destination (its
-// row), in the order of torch.unique's inverse, for the backward's
+// of every slot (its source row, or R where masked), for the backward's
 // source-major pass.  A destination with no unmasked slot gets zeros.
 //
 // Backward, two passes and no float atomics, so a gradient is the same in
@@ -40,15 +42,14 @@
 //     of H, so each warp keeps one head: per slot the score again, alpha =
 //     exp(e - lse), dp = <g_v, z_u>, ds = alpha (dp - D_v) with D_v = <g_v,
 //     agg_v> (the flash-attention identity), de = ds * LeakyReLU'.  It
-//     writes alpha and de per slot (m, f, H), sum_j de per destination,
-//     and accumulates grad_a_src = sum de z_u and grad_a_dst = sum (sum_j
-//     de) z_v in registers, reduced per block in shared memory into one
-//     partial a block.  Its threads also turn the sorted keys into each
-//     row's range of entries.
-//  2. source-major: one warp per (row u, head) walks u's entries in the
-//     stably sorted order (slots in flat order, then the destination entry)
-//     and writes grad_z[u] = sum alpha g_v + (sum de) a_src + (sum_j de)
-//     a_dst once.  Extra blocks sum the partials in block order.
+//     writes alpha and de per slot (m, f, H) and grad_s_dst = sum_j de per
+//     destination, and accumulates grad_a_src = sum de z_u in registers,
+//     reduced per block in shared memory into one partial a block.  Its
+//     threads also turn the sorted keys into each row's range of slots.
+//  2. source-major: one warp per (row u, head) walks u's slots in the
+//     stably sorted order (flat slot order) and writes grad_z[u] = sum
+//     alpha g_v + (sum de) a_src once.  Extra blocks sum the partials in
+//     block order.
 //
 // Float32 throughout: expf and logf, no fast-math, the dot products as
 // explicit fmaf chains so that both passes compute each score to the bit.
@@ -107,9 +108,8 @@ __device__ __forceinline__ int slot_row(const int32_t* i_src,
 __global__ void __launch_bounds__(kThreads)
 relation_attend_fwd_kernel(const float* __restrict__ z,
                            const float* __restrict__ a_src,
-                           const float* __restrict__ a_dst,
+                           const float* __restrict__ s_dst,
                            const int32_t* __restrict__ i_src,
-                           const int32_t* __restrict__ i_dst,
                            const uint8_t* __restrict__ mask,
                            float* __restrict__ agg, float* __restrict__ lse,
                            int32_t* __restrict__ key, int m, int f, int H,
@@ -121,14 +121,10 @@ relation_attend_fwd_kernel(const float* __restrict__ z,
   const int64_t v = w / H;
   const int h = static_cast<int>(w % H);
   const int64_t HC = static_cast<int64_t>(H) * kC;
-  const int64_t dv = i_dst[v];
-  const float4 zv = load4(z + dv * HC + h * kC, lane);
   const float4 as = load4(a_src + h * kC, lane);
-  const float4 ad = load4(a_dst + h * kC, lane);
-  if (h == 0 && lane == 0) key[static_cast<int64_t>(m) * f + v] = dv;
+  const float sd = s_dst[v * H + h];
 
-  float sd = 0.0f, mx = -INFINITY, l = 0.0f;
-  bool have_sd = false;
+  float mx = -INFINITY, l = 0.0f;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int j0 = 0; j0 < f; j0 += 32) {
     const int nj = min(32, f - j0);
@@ -145,10 +141,6 @@ relation_attend_fwd_kernel(const float* __restrict__ z,
         on &= on - 1;
         const int64_t u = __shfl_sync(kAll, mine, j);
         if (ok[k]) zu[k] = load4(z + u * HC + h * kC, lane);
-      }
-      if (!have_sd) {                 // once the first rows' loads are out
-        sd = warp_sum(dot4(ad, zv));
-        have_sd = true;
       }
 #pragma unroll
       for (int k = 0; k < KB; ++k) {
@@ -183,12 +175,12 @@ relation_attend_fwd_kernel(const float* __restrict__ z,
 __global__ void __launch_bounds__(kThreads)
 relation_attend_bwd_dst_kernel(
     const float* __restrict__ z, const float* __restrict__ a_src,
-    const float* __restrict__ a_dst, const int32_t* __restrict__ i_src,
-    const int32_t* __restrict__ i_dst, const uint8_t* __restrict__ mask,
-    const float* __restrict__ agg, const float* __restrict__ lse,
-    const float* __restrict__ g, const int32_t* __restrict__ skey,
-    int64_t n_keys, int32_t* __restrict__ off, float* __restrict__ alpha,
-    float* __restrict__ de, float* __restrict__ sum_de,
+    const float* __restrict__ s_dst, const int32_t* __restrict__ i_src,
+    const uint8_t* __restrict__ mask, const float* __restrict__ agg,
+    const float* __restrict__ lse, const float* __restrict__ g,
+    const int32_t* __restrict__ skey, int64_t n_keys,
+    int32_t* __restrict__ off, float* __restrict__ alpha,
+    float* __restrict__ de, float* __restrict__ grad_s_dst,
     float* __restrict__ partial, int m, int f, int H, int R) {
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -208,17 +200,13 @@ relation_attend_bwd_dst_kernel(
   const int h = static_cast<int>(w % H);             // the same every item
   const int64_t HC = static_cast<int64_t>(H) * kC;
   const float4 as = load4(a_src + h * kC, lane);
-  const float4 ad = load4(a_dst + h * kC, lane);
   float4 ga_s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 ga_d = ga_s;
   for (int64_t item = w; item < static_cast<int64_t>(m) * H; item += W) {
     const int64_t v = item / H;
-    const float4 zv = load4(z + static_cast<int64_t>(i_dst[v]) * HC + h * kC,
-                            lane);
     const float4 gv = load4(g + v * HC + h * kC, lane);
     const float4 av = load4(agg + v * HC + h * kC, lane);
     const float L = lse[v * H + h];
-    const float sd = warp_sum(dot4(ad, zv));
+    const float sd = s_dst[v * H + h];
     const float D = warp_sum(dot4(gv, av));
     float sde = 0.0f;
     for (int j0 = 0; j0 < f; j0 += 32) {
@@ -253,55 +241,47 @@ relation_attend_bwd_dst_kernel(
         }
       }
     }
-    if (lane == 0) sum_de[v * H + h] = sde;
-    axpy4(ga_d, sde, zv);
+    if (lane == 0) grad_s_dst[v * H + h] = sde;
   }
 
-  __shared__ float4 sh[kWarps][2][32];
-  sh[wib][0][lane] = ga_s;
-  sh[wib][1][lane] = ga_d;
+  __shared__ float4 sh[kWarps][32];
+  sh[wib][lane] = ga_s;
   __syncthreads();
-  // this block's partial (2, H, C) as float4s, its warps summed in order
-  for (int e = threadIdx.x; e < 2 * H * 32; e += kThreads) {
-    const int which = e / (H * 32), hh = (e / 32) % H, ln = e % 32;
+  // this block's partial (H, C) as float4s, its warps summed in order
+  for (int e = threadIdx.x; e < H * 32; e += kThreads) {
+    const int hh = e / 32, ln = e % 32;
     float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int k = 0; k < kWarps; ++k) {
       if ((static_cast<int64_t>(blockIdx.x) * kWarps + k) % H != hh) continue;
-      const float4 x = sh[k][which][ln];
+      const float4 x = sh[k][ln];
       s.x += x.x;
       s.y += x.y;
       s.z += x.z;
       s.w += x.w;
     }
-    reinterpret_cast<float4*>(partial)[static_cast<int64_t>(blockIdx.x) * 2 *
-                                           H * 32 + e] = s;
+    reinterpret_cast<float4*>(partial)[static_cast<int64_t>(blockIdx.x) * H *
+                                           32 + e] = s;
   }
 }
 
 // Pass 2: blocks [0, src_blocks) walk the rows, the rest sum the partials.
 __global__ void __launch_bounds__(kThreads)
 relation_attend_bwd_src_kernel(
-    const float* __restrict__ a_src, const float* __restrict__ a_dst,
-    const float* __restrict__ g, const int64_t* __restrict__ order,
-    const int32_t* __restrict__ off, const float* __restrict__ alpha,
-    const float* __restrict__ de, const float* __restrict__ sum_de,
+    const float* __restrict__ a_src, const float* __restrict__ g,
+    const int64_t* __restrict__ order, const int32_t* __restrict__ off,
+    const float* __restrict__ alpha, const float* __restrict__ de,
     const float* __restrict__ partial, int n_partials,
-    float* __restrict__ grad_z, float* __restrict__ grad_a_src,
-    float* __restrict__ grad_a_dst, int m, int f, int H, int R,
-    int src_blocks) {
+    float* __restrict__ grad_z, float* __restrict__ grad_a_src, int f, int H,
+    int R, int src_blocks) {
   if (static_cast<int>(blockIdx.x) >= src_blocks) {
     const int e = (blockIdx.x - src_blocks) * kThreads + threadIdx.x;
     const int n = H * kC;
-    if (e >= 2 * n) return;
+    if (e >= n) return;
     float s = 0.0f;
     for (int b = 0; b < n_partials; ++b) {
-      s += partial[static_cast<int64_t>(b) * 2 * n + e];
+      s += partial[static_cast<int64_t>(b) * n + e];
     }
-    if (e < n) {
-      grad_a_src[e] = s;
-    } else {
-      grad_a_dst[e - n] = s;
-    }
+    grad_a_src[e] = s;
     return;
   }
   const int lane = threadIdx.x & 31;
@@ -311,55 +291,263 @@ relation_attend_bwd_src_kernel(
   const int64_t u = w / H;
   const int h = static_cast<int>(w % H);
   const int64_t HC = static_cast<int64_t>(H) * kC;
-  const int64_t mf = static_cast<int64_t>(m) * f;
   const int s0 = off[u], s1 = off[u + 1];
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float sd_src = 0.0f, sd_dst = 0.0f;
+  float sde = 0.0f;
   for (int b = s0; b < s1; b += 32) {
     const int n = min(32, s1 - b);
-    // lane k holds entry b + k: its slot's alpha and de, or its
-    // destination's sum of de (v < 0 marks a destination entry)
+    // lane k holds slot b + k of the sorted order: its destination, alpha
+    // and de
     int v = 0;
     float a = 0.0f, d = 0.0f;
     if (lane < n) {
       const int64_t idx = order[b + lane];
-      if (idx < mf) {
-        v = static_cast<int>(idx / f);
-        a = alpha[idx * H + h];
-        d = de[idx * H + h];
-      } else {
-        v = -1;
-        d = sum_de[(idx - mf) * H + h];
-      }
+      v = static_cast<int>(idx / f);
+      a = alpha[idx * H + h];
+      d = de[idx * H + h];
     }
     for (int k0 = 0; k0 < n; k0 += KB) {
       float4 gv[KB];
 #pragma unroll
       for (int k = 0; k < KB; ++k) {
         const int64_t vk = __shfl_sync(kAll, v, (k0 + k) & 31);
-        if (k0 + k < n && vk >= 0) gv[k] = load4(g + vk * HC + h * kC, lane);
+        if (k0 + k < n) gv[k] = load4(g + vk * HC + h * kC, lane);
       }
 #pragma unroll
       for (int k = 0; k < KB; ++k) {
         const int src = (k0 + k) & 31;
-        const int vk = __shfl_sync(kAll, v, src);
         const float ak = __shfl_sync(kAll, a, src);
         const float dk = __shfl_sync(kAll, d, src);
         if (k0 + k >= n) break;
-        if (vk >= 0) {
-          axpy4(acc, ak, gv[k]);
-          sd_src += dk;
-        } else {
-          sd_dst += dk;
-        }
+        axpy4(acc, ak, gv[k]);
+        sde += dk;
       }
     }
   }
   const float4 as = load4(a_src + h * kC, lane);
-  const float4 ad = load4(a_dst + h * kC, lane);
-  axpy4(acc, sd_src, as);
-  axpy4(acc, sd_dst, ad);
+  axpy4(acc, sde, as);
   store4(grad_z + u * HC + h * kC, lane, acc);
+}
+
+// fold_scores: the destinations' scores of one R-GAT layer, every
+// relation's W_r folded into its a_dst (`models/rgat.py` `_dst_scores`):
+//
+//   s[v, j] = sum_d h[pos[v], d] ut[j, d]          (n, J), J <= 32
+//
+// read from h by row position, so the level's rows are never gathered into
+// a tensor of their own; backward dut[j] = sum_v ds[v, j] h[pos[v]] and
+// dh[pos[v]] = sum_j ds[v, j] ut[j] (pos holds distinct rows).
+//
+// Bound on an H100 SXM: bytes, h's n rows read once forward and once
+// backward (4 n d B each; 0.28 GB at layer 0 of a 1024-seed rgat3-igbh
+// batch, ~0.08 ms), at 2 J / 4 flops a byte.  There the gather h[pos]
+// alone took 0.20 ms and cuBLAS 0.18-0.27 ms for the skinny (n, d) x
+// (d, J) product and 0.15 for its dut; these kernels read each row once,
+// coalesced, forward 0.27 ms and backward 0.19: ut's chunk in registers
+// (128 of them at J 32) leaves 8 warps an SM, too few to cover the loads'
+// latency, so the rows' positions are loaded two groups ahead and the rows
+// one (0.29 and 0.25 without).  Blocks of 4 warps over half of d read the
+// same (registers, not the block's shape, cap the warps); a warp a half of
+// the columns, 0.42 forward (spills); one row a thread, ut in shared memory
+// read by broadcast, 0.47 forward.
+//
+// Layout: a block's d / 128 warps split d into 128-float chunks; lane l
+// holds floats [4 l, 4 l + 4) of its warp's chunk, and ut's J rows of that
+// chunk in registers.  The block walks groups of kRows rows, its warps
+// together, each warp loading the next group's rows and the positions of
+// the group after while it works on this one.  Forward: a warp's J
+// partial dot products of a row are summed over its lanes by a transposing
+// butterfly (31 shuffles, lane j ends with column j), then over the warps
+// in warp order through shared memory.
+// Backward: dut as one (J, d) partial a block, summed over the blocks in
+// block order by a second launch; dh row by row.  No atomics: the same
+// inputs give the same bits.
+constexpr int kJ = 32;            // most columns: one a lane
+constexpr int kRows = 4;          // rows a block takes at a time
+constexpr int kChunks = kWarps;   // most 128-float chunks of d: d <= 1024
+
+// One step of the transposing butterfly: lanes with bit O keep the upper
+// O of their values and add their partner's, the others the lower O.
+template <int O>
+__device__ __forceinline__ void butterfly(float (&p)[kJ], int lane) {
+  const bool up = lane & O;
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const float send = up ? p[k] : p[k + O];
+    const float keep = up ? p[k + O] : p[k];
+    p[k] = keep + __shfl_xor_sync(kAll, send, O);
+  }
+}
+
+// p[j] summed over the warp's lanes lands in lane j
+__device__ __forceinline__ float transpose_sum(float (&p)[kJ], int lane) {
+  butterfly<16>(p, lane);
+  butterfly<8>(p, lane);
+  butterfly<4>(p, lane);
+  butterfly<2>(p, lane);
+  butterfly<1>(p, lane);
+  return p[0];
+}
+
+__device__ __forceinline__ void load_chunk(float4 (&u)[kJ],
+                                           const float* __restrict__ ut,
+                                           int d, int J, int w, int lane) {
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    u[j] = j < J ? load4(ut + static_cast<int64_t>(j) * d + w * kC, lane)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// The positions of rows v0 .. v0 + kRows - 1, -1 past n.
+__device__ __forceinline__ void load_pos(int64_t (&p)[kRows],
+                                         const int64_t* __restrict__ pos,
+                                         int64_t v0, int64_t n) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) p[r] = v0 + r < n ? pos[v0 + r] : -1;
+}
+
+// The warp's chunk of the rows at p (zeros where -1).
+__device__ __forceinline__ void load_rows(float4 (&x)[kRows],
+                                          const float* __restrict__ h,
+                                          const int64_t (&p)[kRows], int d,
+                                          int w, int lane) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    x[r] = p[r] >= 0 ? load4(h + p[r] * d + w * kC, lane)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// Lane j < J: ds[v, j] of the rows v0 .. v0 + kRows - 1 (zeros past n).
+__device__ __forceinline__ void load_grads(float (&g)[kRows],
+                                           const float* __restrict__ ds,
+                                           int64_t v0, int64_t n, int J,
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    g[r] = v0 + r < n && lane < J ? ds[(v0 + r) * J + lane] : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fold_scores_fwd_kernel(const float* __restrict__ h,
+                       const int64_t* __restrict__ pos,
+                       const float* __restrict__ ut, float* __restrict__ s,
+                       int64_t n, int d, int J) {
+  __shared__ float red[kRows][kChunks][kJ];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kRows;
+  float4 u[kJ];
+  load_chunk(u, ut, d, J, w, lane);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kRows;
+  int64_t p[kRows];
+  float4 x[kRows];
+  load_pos(p, pos, first, n);
+  load_rows(x, h, p, d, w, lane);
+  load_pos(p, pos, first + step, n);
+  for (int64_t v0 = first; v0 < n; v0 += step) {
+    float4 next[kRows];
+    load_rows(next, h, p, d, w, lane);
+    load_pos(p, pos, v0 + 2 * step, n);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float p[kJ];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) p[j] = dot4(x[r], u[j]);
+      red[r][w][lane] = transpose_sum(p, lane);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kRows * J; e += blockDim.x) {
+      const int r = e / J, j = e % J;
+      if (v0 + r >= n) continue;
+      float acc = 0.0f;
+      for (int k = 0; k < W; ++k) acc += red[r][k][j];
+      s[(v0 + r) * J + j] = acc;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) x[r] = next[r];
+  }
+}
+
+// Each block's share of the rows into partial[blockIdx.x] (J, d).
+__global__ void __launch_bounds__(kThreads)
+fold_scores_bwd_u_kernel(const float* __restrict__ h,
+                         const int64_t* __restrict__ pos,
+                         const float* __restrict__ ds,
+                         float* __restrict__ partial, int64_t n, int d,
+                         int J) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kRows;
+  float4 acc[kJ];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 x[kRows];
+  float g[kRows];
+  int64_t p[kRows];
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kRows;
+  load_pos(p, pos, first, n);
+  load_rows(x, h, p, d, w, lane);
+  load_grads(g, ds, first, n, J, lane);
+  load_pos(p, pos, first + step, n);
+  for (int64_t v0 = first; v0 < n; v0 += step) {
+    float4 next[kRows];
+    float next_g[kRows];
+    load_rows(next, h, p, d, w, lane);
+    load_grads(next_g, ds, v0 + step, n, J, lane);
+    load_pos(p, pos, v0 + 2 * step, n);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        axpy4(acc[j], __shfl_sync(kAll, g[r], j), x[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      x[r] = next[r];
+      g[r] = next_g[r];
+    }
+  }
+  float* out = partial + static_cast<int64_t>(blockIdx.x) * J * d;
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    if (j < J) {
+      store4(out + static_cast<int64_t>(j) * d + w * kC, lane, acc[j]);
+    }
+  }
+}
+
+// dut[e] = sum of the partials in block order, e over J * d.
+__global__ void __launch_bounds__(kThreads)
+fold_scores_sum_kernel(const float* __restrict__ partial, int n_partials,
+                       float* __restrict__ dut, int64_t size) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= size) return;
+  float acc = 0.0f;
+  for (int b = 0; b < n_partials; ++b) acc += partial[b * size + e];
+  dut[e] = acc;
+}
+
+// dh[pos[v]] = sum_j ds[v, j] ut[j]; rows of dh that pos does not name
+// are left as they are.
+__global__ void __launch_bounds__(kThreads)
+fold_scores_bwd_h_kernel(const int64_t* __restrict__ pos,
+                         const float* __restrict__ ut,
+                         const float* __restrict__ ds, float* __restrict__ dh,
+                         int64_t n, int d, int J) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float4 u[kJ];
+  load_chunk(u, ut, d, J, w, lane);
+  for (int64_t v = blockIdx.x; v < n; v += gridDim.x) {
+    const float g = lane < J ? ds[v * J + lane] : 0.0f;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) axpy4(acc, __shfl_sync(kAll, g, j), u[j]);
+    store4(dh + pos[v] * d + w * kC, lane, acc);
+  }
 }
 
 int sm_count() {
@@ -381,19 +569,19 @@ int blocks_for(int64_t warps) {
 extern "C" {
 
 int relation_attend_fwd(const float* z, const float* a_src,
-                        const float* a_dst, const int32_t* i_src,
-                        const int32_t* i_dst, const uint8_t* mask, float* agg,
-                        float* lse, int32_t* key, int m, int f, int H, int R,
+                        const float* s_dst, const int32_t* i_src,
+                        const uint8_t* mask, float* agg, float* lse,
+                        int32_t* key, int m, int f, int H, int R,
                         cudaStream_t stream) {
   const int blocks = blocks_for(static_cast<int64_t>(m) * H);
   relation_attend_fwd_kernel<<<blocks, kThreads, 0, stream>>>(
-      z, a_src, a_dst, i_src, i_dst, mask, agg, lse, key, m, f, H, R);
+      z, a_src, s_dst, i_src, mask, agg, lse, key, m, f, H, R);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Pass 1's grid: as many blocks as the card keeps resident (fewer where
 // there are fewer (destination, head) pairs), rounded up to a multiple of
-// H.  The wrapper sizes the partials, one (2, H, C) a block, from it.
+// H.  The wrapper sizes the partials, one (H, C) a block, from it.
 int relation_attend_bwd_blocks(int m, int H) {
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -406,26 +594,65 @@ int relation_attend_bwd_blocks(int m, int H) {
 }
 
 int relation_attend_bwd(const float* z, const float* a_src,
-                        const float* a_dst, const int32_t* i_src,
-                        const int32_t* i_dst, const uint8_t* mask,
-                        const float* agg, const float* lse, const float* g,
-                        const int32_t* skey, const int64_t* order,
-                        int32_t* off, float* alpha, float* de, float* sum_de,
-                        float* partial, int n_partials, float* grad_z,
-                        float* grad_a_src, float* grad_a_dst, int m, int f,
-                        int H, int R, cudaStream_t stream) {
-  const int64_t n_keys = static_cast<int64_t>(m) * f + m;
+                        const float* s_dst, const int32_t* i_src,
+                        const uint8_t* mask, const float* agg,
+                        const float* lse, const float* g, const int32_t* skey,
+                        const int64_t* order, int32_t* off, float* alpha,
+                        float* de, float* partial, int n_partials,
+                        float* grad_z, float* grad_a_src, float* grad_s_dst,
+                        int m, int f, int H, int R, cudaStream_t stream) {
+  const int64_t n_keys = static_cast<int64_t>(m) * f;
   relation_attend_bwd_dst_kernel<<<n_partials, kThreads, 0, stream>>>(
-      z, a_src, a_dst, i_src, i_dst, mask, agg, lse, g, skey, n_keys, off,
-      alpha, de, sum_de, partial, m, f, H, R);
+      z, a_src, s_dst, i_src, mask, agg, lse, g, skey, n_keys, off, alpha, de,
+      grad_s_dst, partial, m, f, H, R);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int src_blocks = blocks_for(static_cast<int64_t>(R) * H);
-  const int sum_blocks = (2 * H * kC + kThreads - 1) / kThreads;
+  const int sum_blocks = (H * kC + kThreads - 1) / kThreads;
   relation_attend_bwd_src_kernel<<<src_blocks + sum_blocks, kThreads, 0,
                                    stream>>>(
-      a_src, a_dst, g, order, off, alpha, de, sum_de, partial, n_partials,
-      grad_z, grad_a_src, grad_a_dst, m, f, H, R, src_blocks);
+      a_src, g, order, off, alpha, de, partial, n_partials, grad_z,
+      grad_a_src, f, H, R, src_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fold_scores launches: blocks of d / 128 warps, as many as the card
+// keeps resident (fewer where there are fewer row groups).
+int fold_scores_blocks(int64_t n, int d) {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fold_scores_bwd_u_kernel, d / kC * 32, 0);
+  const int64_t blocks =
+      static_cast<int64_t>(sm_count()) * (per_sm > 0 ? per_sm : 1);
+  const int64_t needed = (n + kRows - 1) / kRows;
+  return static_cast<int>(needed < blocks ? needed : blocks);
+}
+
+int fold_scores_fwd(const float* h, const int64_t* pos, const float* ut,
+                    float* s, int64_t n, int d, int J, int blocks,
+                    cudaStream_t stream) {
+  fold_scores_fwd_kernel<<<blocks, d / kC * 32, 0, stream>>>(h, pos, ut, s, n,
+                                                             d, J);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dut (J, d) from ds (n, J), through partial (blocks, J, d); and dh's rows
+// pos where dh is not null.
+int fold_scores_bwd(const float* h, const int64_t* pos, const float* ut,
+                    const float* ds, float* partial, float* dut, float* dh,
+                    int64_t n, int d, int J, int blocks, cudaStream_t stream) {
+  const int threads = d / kC * 32;
+  fold_scores_bwd_u_kernel<<<blocks, threads, 0, stream>>>(h, pos, ds,
+                                                           partial, n, d, J);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t size = static_cast<int64_t>(J) * d;
+  fold_scores_sum_kernel<<<static_cast<int>((size + kThreads - 1) / kThreads),
+                           kThreads, 0, stream>>>(partial, blocks, dut, size);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dh == nullptr) return static_cast<int>(err);
+  fold_scores_bwd_h_kernel<<<blocks * kRows, threads, 0, stream>>>(
+      pos, ut, ds, dh, n, d, J);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,11 +17,15 @@ destination v of type t and head k (H heads of C = hidden / H):
                                         (no activation after the last layer)
     logits = x_seed W_out + b_out
 
-Each relation projects the rows its slots and destinations name once
-(`torch.unique` of their positions) and indexes the projections by slot.
-Parameters keep the reference layout, `{"layer{l}.{relation}": {"w",
-"attn_src", "attn_dst", "b"}, "head": {"w", "b"}}`, weights as (d_in,
-d_out), with `GNN`'s `param_tree` / `load_reference_params` contract.
+z_v enters only through its score, and per head a_dst^k . (W_r^k x_v) =
+x_v . (W_r^k a_dst^k): so each layer folds every relation's W_r into its
+a_dst, U_r (d_in, H), and scores all of level k's rows in one product,
+h[level_pos] @ [U_r ...], read from h by row (`_dst_scores`).  Each
+relation then projects only the rows its slots name, once (`torch.unique`
+of their positions), and indexes the projections by slot.  Parameters keep
+the reference layout, `{"layer{l}.{relation}": {"w", "attn_src",
+"attn_dst", "b"}, "head": {"w", "b"}}`, weights as (d_in, d_out), with
+`GNN`'s `param_tree` / `load_reference_params` contract.
 `models/rgat_ref.py` is the plain reference.
 """
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.kernels.relation_attend import relation_attend
+from repro_torch.kernels.relation_attend import fold_scores, relation_attend
 from repro_torch.models.common import ParamDef, init_params
 # `sgd_step` (p -= lr * grad) is GNN's, through `RGAT.loss`
 from repro_torch.models.gnn import GNN, sgd_step  # noqa: F401
@@ -86,6 +90,7 @@ class RGATBlocks:
     seeds: torch.Tensor    # level-0 positions of the batch's seeds
     level_sizes: list
     hops: list             # hops[k]: a `RelationTensors` per relation
+    level_pos: list        # level_pos[k]: level k's positions in k + 1
 
 
 def block_tensors(blocks: RelationalBlocks,
@@ -109,7 +114,8 @@ def block_tensors(blocks: RelationalBlocks,
         hops.append(out)
     seeds = np.searchsorted(blocks.levels[0], blocks.seeds)
     return RGATBlocks(seeds=dev(seeds),
-                      level_sizes=[len(v) for v in blocks.levels], hops=hops)
+                      level_sizes=[len(v) for v in blocks.levels], hops=hops,
+                      level_pos=[dev(pos) for pos in blocks.level_pos])
 
 
 class RGAT(nn.Module):
@@ -136,6 +142,9 @@ class RGAT(nn.Module):
             for l in range(self.L))
         self.head = nn.ParameterDict(
             {k: nn.Parameter(v.to(dev)) for k, v in values["head"].items()})
+        #: per layer of the last forward: the rows each relation projected
+        #: ("projected", by name) and the rows the fold scored ("scored")
+        self.last_rows: list[dict] = []
 
     def param_defs(self) -> dict:
         cfg = self.cfg
@@ -174,33 +183,52 @@ class RGAT(nn.Module):
     load_reference_params = GNN.load_reference_params
     loss = GNN.loss
 
-    def _attend(self, p, h: torch.Tensor, b: RelationTensors
-                ) -> torch.Tensor:
-        """m_v,r less its bias for the destinations with an edge: each
-        referenced row of `h` projected once, and the attention read from
+    def _dst_scores(self, l: int, h: torch.Tensor, pos: torch.Tensor
+                    ) -> torch.Tensor:
+        """a_dst,r . z_v for the rows `pos` of h, every relation r and
+        head: (n, relations, H), through every relation's W_r folded into
+        its a_dst,r, all in one product (`kernels.relation_attend`'s
+        `fold_scores`)."""
+        H = self.cfg.num_heads
+        ps = [self.layer[l][name] for name in self.names]
+        w = torch.stack([p["w"] for p in ps])
+        ut = torch.einsum("rdhc,rhc->rhd", w.view(*w.shape[:2], H, -1),
+                          torch.stack([p["attn_dst"] for p in ps]))
+        return fold_scores(h, pos, ut.reshape(-1, w.shape[1]).contiguous()
+                           ).view(len(pos), len(ps), H)
+
+    def _attend(self, p, h: torch.Tensor, b: RelationTensors,
+                s_dst: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """m_v,r less its bias for the destinations with an edge, given
+        their scores `s_dst` (m, H), and the rows projected: each row of
+        `h` that a slot names projected once, and the attention read from
         the projections by slot (`kernels.relation_attend`)."""
         H = self.cfg.num_heads
-        m, f = b.src.shape
-        ref, inv = torch.unique(torch.cat([b.src.reshape(-1), b.nxt]),
-                                return_inverse=True)
+        ref, inv = torch.unique(b.src, return_inverse=True)
         z = (h[ref] @ p["w"]).reshape(len(ref), H, -1)
-        inv = inv.to(torch.int32)
-        return relation_attend(z, p["attn_src"], p["attn_dst"],
-                               inv[:m * f].reshape(m, f), inv[m * f:], b.mask)
+        return relation_attend(z, p["attn_src"], s_dst, inv.to(torch.int32),
+                               b.mask), len(ref)
 
     def forward(self, feats: torch.Tensor, blocks: RGATBlocks
                 ) -> torch.Tensor:
         """feats: (U, D) rows of the last level, in its order.  Returns
         the seeds' logits."""
         h = feats
+        self.last_rows = []
         for l in range(self.L):
             k = self.L - 1 - l
             out = torch.zeros(blocks.level_sizes[k], self.cfg.hidden_dim,
                               dtype=h.dtype, device=h.device)
+            s_dst = self._dst_scores(l, h, blocks.level_pos[k])
+            rows = {"projected": {}, "scored": len(s_dst)}
             for b in blocks.hops[k]:
-                p = self.layer[l][self.names[b.relation]]
+                name = self.names[b.relation]
+                p = self.layer[l][name]
                 out.index_add_(0, b.dst, p["b"].expand(len(b.dst), -1))
                 if len(b.rows):
-                    out.index_add_(0, b.rows, self._attend(p, h, b))
+                    msg, rows["projected"][name] = self._attend(
+                        p, h, b, s_dst[b.rows, b.relation])
+                    out.index_add_(0, b.rows, msg)
+            self.last_rows.append(rows)
             h = F.leaky_relu(out, 0.01) if l < self.L - 1 else out
         return h[blocks.seeds] @ self.head["w"] + self.head["b"]

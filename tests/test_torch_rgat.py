@@ -141,6 +141,38 @@ def test_parameters_after_two_sgd_steps_match_the_reference(hg):
                                        msg=f"{g}.{k}")
 
 
+@pytest.mark.parametrize("seed", [1, 4])
+def test_last_rows_show_only_source_rows_projected(hg, seed):
+    """`RGAT.last_rows` after a forward: each relation projected exactly
+    the unique rows its slots name, and the fold scored every row of the
+    destination level once.  A cross-type relation's destinations are of
+    another type than its sources, so none of them enters z: the form that
+    projected destinations too held each of them as an extra row."""
+    _, model, blocks, x, _ = _setup(hg, seed=seed)
+    model(x, block_tensors(blocks, "cpu"))
+    assert len(model.last_rows) == len(FANOUTS)
+    cross = 0
+    for l, rows in enumerate(model.last_rows):
+        k = len(FANOUTS) - 1 - l
+        assert rows["scored"] == len(blocks.levels[k])
+        want = {}
+        for blk in blocks.hops[k]:
+            keep = blk.mask.any(axis=1)
+            if not keep.any():
+                continue
+            name = NAMES[blk.relation]
+            src = np.unique(blk.src[keep])
+            want[name] = len(src)
+            s, _, t = IGBH_RELATIONS[blk.relation]
+            if s != t:
+                nxt = blocks.level_pos[k][blk.dst[keep]]
+                assert not np.isin(nxt, src).any()
+                assert len(np.union1d(src, nxt)) == len(src) + keep.sum()
+                cross += 1
+        assert rows["projected"] == want
+    assert cross > 0
+
+
 def _tf32_like(t: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32's 10 mantissa bits (round to nearest)."""
     bits = t.contiguous().view(torch.int32)
