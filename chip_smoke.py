@@ -61,6 +61,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    before the fold (destination rows projected too), each held to the
    latter in float64: device ms, matrix-product ms, destination-score ms,
    rows projected.
+   hgt_attend (HGT's softmax across every relation into a destination)
+   runs each layer of one 1024-seed batch of the hgt3-igbh cell (its CSR
+   and stacked k'/v' rows from `hgt_blocks`, 8 heads of 32), forward and
+   backward each within 1e-5 of the plain formulas in float64 by norm and
+   bit-equal over two runs, timed beside the plain version on the card
+   against the hgt family's byte count; then one whole HGT step on that
+   batch launches it forward and backward once per layer, counts its
+   levels' rows, slots and distinct sources as the sampler's blocks hold
+   them, and traces as many hgt_attend kernels as the family counts.
    Times are CUDA-event medians of 20 launches after warm-up, with a 256 MB
    buffer written and a short device sleep before each launch, so that
    every launch starts from a cold L2 and the host's enqueue time is
@@ -361,10 +370,16 @@ Run it on two trees in turns in one call to compare them on one card.
 builds the kernels and runs phase 2's relation_attend rows alone (the
 kernel rows, the step's launches and rows, layer 0 both ways).
 
+    python3 chip_smoke.py --hgt-attend
+
+builds the kernels and runs phase 2's hgt_attend rows alone (a row a
+layer, the step's launches, rows and traced kernels).
+
 The script imports torch, numpy and the port (src/repro_torch, or
-TREE/src with --cache-ab) only, and for the relation_attend rows the
-benchmark's graph generator (bench/families/rgat.py) and the rgat3-igbh
-configuration.
+TREE/src with --cache-ab) only, and for the relation_attend and
+hgt_attend rows the benchmark's graph generator and byte counts
+(bench/families/rgat.py, bench/families/hgt.py) and the rgat3-igbh and
+hgt3-igbh configurations.
 """
 from __future__ import annotations
 
@@ -1925,15 +1940,16 @@ RELATION_ATTEND_REL = 1e-5
 PROFILED = 3
 
 
-def rgat_batch(torch, np):
-    """One batch of the `rgat3-igbh` cell on the card in the model's form
-    (`RGATBlocks`), and the configuration."""
+def relational_batch(torch, np, config: str):
+    """One RGAT_BATCH batch of the cell whose configuration is
+    bench/configs/`config`.json, on the card's graph through the
+    relational sampler: (`RelationalBlocks`, the `HeteroGraph`, the
+    configuration)."""
     sys.path.insert(0, str(ROOT))
     from bench.families import rgat as family
     from repro_torch.graph.hetero import HeteroGraph, Relation
-    from repro_torch.models.rgat import block_tensors
     from repro_torch.sampling.relational import relational_sample_blocks
-    cfg = json.loads((ROOT / "bench" / "configs" / "rgat3-igbh.json")
+    cfg = json.loads((ROOT / "bench" / "configs" / f"{config}.json")
                      .read_text())
     rels = family.relation_csrs(cfg, torch.device("cuda"))
     graph = HeteroGraph(cfg["nodes"], [
@@ -1944,6 +1960,14 @@ def rgat_batch(torch, np):
     seeds = rng.choice(np.flatnonzero(np.diff(cites["indptr"])),
                        RGAT_BATCH["seeds"], replace=False)
     blocks = relational_sample_blocks(graph, seeds, cfg["fanouts"], rng)
+    return blocks, graph, cfg
+
+
+def rgat_batch(torch, np):
+    """One batch of the `rgat3-igbh` cell on the card in the model's form
+    (`RGATBlocks`), and the configuration."""
+    from repro_torch.models.rgat import block_tensors
+    blocks, _, cfg = relational_batch(torch, np, "rgat3-igbh")
     return block_tensors(blocks, "cuda"), cfg
 
 
@@ -2016,12 +2040,13 @@ def rgat_step_launches(torch, batch, cfg) -> dict:
     return row
 
 
-def rgat_step_profile(torch, step) -> dict:
-    """Where one R-GAT forward and backward spends the card's time:
-    torch.profiler over PROFILED calls of `step`, a call's busy ms (the
-    union of kernels, copies and memsets), its kernels' ms by class (the
-    matrix products, `relation_attend`, `fold_scores`, the rest) and its
-    top kernels."""
+def rgat_step_profile(torch, step,
+                      named=("relation_attend", "fold_scores")) -> dict:
+    """Where one forward and backward (R-GAT's by default) spends the
+    card's time: torch.profiler over PROFILED calls of `step`, a call's
+    busy ms (the union of kernels, copies and memsets), its kernels' ms by
+    class (the matrix products, each of the hand-written kernels `named`,
+    the rest) and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
     trace = ROOT / "build" / "rgat_step_trace.json"
     trace.parent.mkdir(exist_ok=True)
@@ -2033,14 +2058,16 @@ def rgat_step_profile(torch, step) -> dict:
     prof.export_chrome_trace(str(trace))
     dev = _device_busy(trace)
     trace.unlink()
-    by_class: dict = {}
+    by_class, count = {}, {}
     for name, ms in dev["kernel_ms_by_name"].items():
-        c = next((k for k in ("relation_attend", "fold_scores") if k in name),
-                 _kernel_class(name))
+        c = next((k for k in named if k in name), _kernel_class(name))
         by_class[c] = by_class.get(c, 0.0) + ms / PROFILED
+        count[c] = (count.get(c, 0)
+                    + dev["kernel_count_by_name"][name] / PROFILED)
     top = sorted(dev["kernel_ms_by_name"].items(), key=lambda kv: -kv[1])
     return {"busy_ms": dev["busy_ms"] / PROFILED,
             "kernel_ms_by_class": by_class,
+            "kernel_count_by_class": count,
             "top_kernels_ms": [[n[:90], ms / PROFILED] for n, ms in top[:10]]}
 
 
@@ -2356,6 +2383,174 @@ def kernel_relation_attend(torch, timer, np):
     paths = rgat_layer0_paths(torch, timer, batch, cfg)
     step.update({f"layer0_{k}": paths[k] for k in ("folded", "before")})
     return step
+
+#: `hgt_attend` against the plain formulas in float64, by norm (tests/
+#: test_torch_hgt_attend.py's CARD_REL)
+HGT_ATTEND_REL = 1e-5
+
+
+def kernel_hgt_attend(torch, timer, np) -> dict:
+    """`hgt_attend` (HGT's softmax across every relation into a
+    destination) forward and backward at each layer of one RGAT_BATCH
+    batch of the `hgt3-igbh` cell, as `HGT` hands it the batch
+    (`hgt_blocks`' CSR over level k and the relations' stacked k'/v' rows;
+    random q, k', v' and out's gradient g at 8 heads of 32): out, dq, dk'
+    and dv' each within HGT_ATTEND_REL of the plain formulas in float64,
+    the backward bit-equal over two runs; then one whole HGT step on the
+    batch (`hgt_step_launches`).  Per layer: the forward and the backward
+    (the stable sort of `idx` and both passes; the sort alone beside it)
+    timed, and the plain version's forward + backward on the card.
+    `bound_ms` is the `hgt` family's compulsory bytes
+    (`hgt_attend_bytes`, the bytes `hgt_attend_roofline` counts: q, each
+    k'/v' row once, the CSR, out and the log-sum-exp forward; those, g,
+    dq, dk' and dv' backward); `slot_bound_ms` reads a 1 KB row of two
+    tensors for every slot in each pass instead (k' and v' forward and in
+    the destination pass, q and g in the row pass)."""
+    sys.path.insert(0, str(ROOT))
+    from bench.families import hgt as family
+    from repro_torch.kernels import hgt_attend as ha
+    from repro_torch.models.hgt import hgt_blocks
+    blocks, graph, cfg = relational_batch(torch, np, "hgt3-igbh")
+    batch = hgt_blocks(blocks, graph, "cuda")
+    H, D = ha.HEADS, ha.HEAD_DIM
+    L = len(cfg["fanouts"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for layer in range(L):
+        hop = batch.hops[L - 1 - layer]
+        indptr, idx = hop.indptr, hop.idx
+        n, S = len(indptr) - 1, len(idx)
+        R = sum(len(r) for _, _, r in hop.rows)
+        q = 0.3 * torch.randn((n, H, D), generator=gen, device="cuda")
+        k = 0.3 * torch.randn((R, H, D), generator=gen, device="cuda")
+        v = torch.randn((R, H, D), generator=gen, device="cuda")
+        g = torch.randn((n, H * D), generator=gen, device="cuda")
+
+        def run():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = ha.hgt_attend(*leaves, indptr, idx)
+            return (out.detach(), *torch.autograd.grad(out, leaves, g))
+
+        got, again = run(), run()
+        wide = [t.double() for t in (q, k, v)]
+        w_out, w_lse = ha.attend_ref(*wide, indptr, idx)
+        want = (w_out, *ha.attend_backward_ref(g.double(), *wide, indptr,
+                                               idx, w_out, w_lse))
+        torch.cuda.synchronize()
+        rel = {name: float((a.double() - b).norm() / b.norm())
+               for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+        check(max(rel.values()) < HGT_ATTEND_REL,
+              f"hgt_attend layer {layer} {rel}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"hgt_attend layer {layer}: two runs differ")
+        err = max(float((a.double() - b).abs().max())
+                  for a, b in zip(got, want))
+        del got, again, wide, want, w_out, w_lse
+        fwd_bytes, bwd_bytes = family.hgt_attend_bytes(n, S, R, H * D, H)
+        row4, csr = H * D * 4, (n + 1 + S) * 4
+        slot_fwd = 2 * S * row4 + 2 * n * row4 + csr + n * H * 4
+        slot_bwd = (4 * S * row4 + 4 * n * row4 + csr + n * H * 4
+                    + 2 * R * row4)
+        out, lse = ha._forward(q, k, v, indptr, idx)
+        fwd_ms = timer(lambda: ha._forward(q, k, v, indptr, idx))
+        bwd_ms = timer(lambda: ha._backward(g, q, k, v, indptr, idx, out,
+                                            lse))
+        p_out, p_lse = ha.attend_ref(q, k, v, indptr, idx)
+        plain_ms = (timer(lambda: ha.attend_ref(q, k, v, indptr, idx))
+                    + timer(lambda: ha.attend_backward_ref(
+                        g, q, k, v, indptr, idx, p_out, p_lse)))
+        row = {"phase": "kernel", "name": "hgt_attend", "layer": layer,
+               "shape": [n, S, R, H, D], "max_abs_err": err, "rel_err": rel,
+               "kernel_ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms,
+               "bwd_ms": bwd_ms,
+               "sort_ms": timer(lambda: torch.sort(idx, stable=True)),
+               "plain_ms": plain_ms, "library_ms": None,
+               "fwd_bound_ms": bound(fwd_bytes)["bound_ms"],
+               "bwd_bound_ms": bound(bwd_bytes)["bound_ms"],
+               "slot_bound_ms": bound(slot_fwd + slot_bwd)["bound_ms"],
+               **bound(fwd_bytes + bwd_bytes)}
+        emit(row)
+        rows.append(row)
+        del q, k, v, g, out, lse, p_out, p_lse
+    step = summary(rows)
+    step.update({key: sum(r[key] for r in rows)
+                 for key in ("fwd_ms", "bwd_ms", "sort_ms", "fwd_bound_ms",
+                             "bwd_bound_ms", "slot_bound_ms")})
+    emit({"phase": "kernel", "name": "hgt_attend_layers", **step})
+    torch.cuda.empty_cache()
+    row = hgt_step_launches(torch, np, batch, blocks, cfg)
+    step.update({f"step_{key}": row[key] for key in (
+        "launches", "kernels", "hgt_attend_roofline_pct")})
+    return step
+
+
+def hgt_step_launches(torch, np, batch, blocks, cfg) -> dict:
+    """One whole HGT `sgd_step` at the cell's widths on `batch` (default
+    initialisation, random features and labels): `hgt_attend` launched
+    forward and backward once for each layer with a destination, each
+    layer counting (`HGT.last_rows`) its level's rows, its unmasked slots
+    and, per relation, the distinct sources of that relation's block in
+    the sampler's own blocks; the step's peak memory above the features;
+    then its device time (`rgat_step_profile`), where the traced
+    `hgt_attend` kernels have to be the launches and bytes the `hgt`
+    family counts for the step (`attend_counts`, what
+    `hgt_attend_roofline` reads), and their roofline share."""
+    from bench.families import hgt as family
+    from repro_torch.kernels import _build
+    from repro_torch.models.hgt import HGT, HGTConfig, sgd_step
+    L = len(cfg["fanouts"])
+    model = HGT(HGTConfig(
+        in_dim=cfg["in_dim"], hidden_dim=cfg["hidden_dim"],
+        num_heads=cfg["num_heads"], num_classes=cfg["num_classes"],
+        fanouts=tuple(cfg["fanouts"]),
+        relations=tuple(tuple(r) for r in cfg["relations"]),
+        node_types=tuple(cfg["nodes"])), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    feats = torch.randn((batch.bounds[L][-1], cfg["in_dim"]), generator=gen,
+                        device="cuda")
+    y = torch.randint(0, cfg["num_classes"], (len(batch.seeds),),
+                      generator=gen, device="cuda")
+    layers = sum(1 for hop in batch.hops if len(hop.indptr) > 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    sgd_step(model, feats, batch, y, cfg["lr"])
+    torch.cuda.synchronize()
+    got = {key: _build.LAUNCHES[key]
+           for key in ("hgt_attend_fwd", "hgt_attend_bwd")}
+    check(got == {key: layers for key in got},
+          f"launches {got}: hgt_attend once per layer with a destination "
+          f"({layers})")
+    for layer, counted in enumerate(model.last_rows):
+        k = L - 1 - layer
+        want = {"dst": len(blocks.levels[k]),
+                "slots": int(sum(b.mask.sum() for b in blocks.hops[k])),
+                "kv_rows": {model.names[b.relation]:
+                            len(np.unique(b.src[b.mask]))
+                            for b in blocks.hops[k] if b.mask.any()}}
+        check(counted == want, f"layer {layer} counted {counted}, its "
+              f"blocks hold {want}")
+    shape = [(r["dst"], r["slots"], sum(r["kv_rows"].values()))
+             for r in model.last_rows]
+    nbytes, launches = family.attend_counts(cfg, shape)
+    profile = rgat_step_profile(torch, lambda: model.loss(
+        feats, batch, y).backward(), named=("hgt_attend",))
+    traced = profile["kernel_count_by_class"].get("hgt_attend", 0)
+    check(traced == launches, f"{traced} hgt_attend kernels traced a step, "
+          f"the hgt family counts {launches}")
+    attend_ms = profile["kernel_ms_by_class"]["hgt_attend"]
+    row = {"phase": "kernel", "name": "hgt_attend_step", "card": card_line(),
+           "launches": got, "kernels": launches, "shape": shape,
+           "rows": model.last_rows,
+           "step_peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "hgt_attend_bytes": nbytes,
+           "hgt_attend_roofline_pct": 100.0 * nbytes / HBM_BYTES_PER_S
+           / (attend_ms / 1e3),
+           "profile": profile}
+    emit(row)
+    return row
+
 
 # -- phase 3 -------------------------------------------------------------------
 
@@ -5719,6 +5914,12 @@ SOURCES = {
                         "_attend's gather, masked softmax and einsum",
                         "within 1e-5 of the float64 plain formulas by norm; "
                         "backward bit-equal over two runs"),
+    "hgt_attend": ("src/repro_torch/kernels/csrc/hgt_attend.cu",
+                   "none (HGT has no JAX original): kernels/hgt_attend.py "
+                   "attend_ref and attend_backward_ref, the slot gathers, "
+                   "scatter max and sums",
+                   "within 1e-5 of the float64 plain formulas by norm; "
+                   "bit-equal over two runs"),
 }
 
 
@@ -5744,6 +5945,9 @@ def main() -> int:
     parser.add_argument("--relation-attend", action="store_true",
                         help="instead of the run, build the kernels and run "
                         "phase 2's relation_attend rows alone")
+    parser.add_argument("--hgt-attend", action="store_true",
+                        help="instead of the run, build the kernels and run "
+                        "phase 2's hgt_attend rows alone")
     parser.add_argument("--tier-ab", nargs="?", const=".", metavar="TREE",
                         help="instead of the run, phases 3 and 4 against "
                         "the package of TREE, a directory inside this "
@@ -5787,6 +5991,9 @@ def main() -> int:
     if args.relation_attend:
         kernel_relation_attend(torch, Timer(torch), np)
         return 0
+    if args.hgt_attend:
+        kernel_hgt_attend(torch, Timer(torch), np)
+        return 0
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {"segment_mean": kernel_segment_mean(torch, timer, gen),
@@ -5799,7 +6006,8 @@ def main() -> int:
                 "frontier_read": kernel_frontier_read(torch, timer, np),
                 "flash_attention": kernel_flash_attention(torch, timer, gen),
                 "flash_combine": kernel_flash_combine(torch, timer, gen),
-                "relation_attend": kernel_relation_attend(torch, timer, np)}
+                "relation_attend": kernel_relation_attend(torch, timer, np),
+                "hgt_attend": kernel_hgt_attend(torch, timer, np)}
     cache = {case: dict(zip(("cache_access", "cache_bucket"),
                             kernel_cache_access(torch, timer, np, **kw)))
              for case, kw in CACHE_ROWS}
