@@ -70,6 +70,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    batch launches it forward and backward once per layer, counts its
    levels' rows, slots and distinct sources as the sampler's blocks hold
    them, and traces as many hgt_attend kernels as the family counts.
+   gat_attend (GAT's attention over the fanout) runs each of the 6
+   layer-levels of one 1024-seed batch of the gat3-igbs cell (the zd and
+   zn GNN._layer hands it, 4 heads of 32, fanouts 10 and 5), forward and
+   backward each within 1e-5 of the plain formulas in float64 and equal
+   to the float32 eager chain to the bit, timed beside
+   the eager chain on the card against its byte bound; then one whole GAT
+   step on that batch launches it forward and backward once per
+   layer-level and traces one gat_attend kernel each, its busy time beside
+   the same step through the eager chain, whose parameters it equals to
+   the bit.
    Times are CUDA-event medians of 20 launches after warm-up, with a 256 MB
    buffer written and a short device sleep before each launch, so that
    every launch starts from a cold L2 and the host's enqueue time is
@@ -375,11 +385,17 @@ kernel rows, the step's launches and rows, layer 0 both ways).
 builds the kernels and runs phase 2's hgt_attend rows alone (a row a
 layer, the step's launches, rows and traced kernels).
 
+    python3 chip_smoke.py --gat-attend
+
+builds the kernels and runs phase 2's gat_attend rows alone (a row a
+layer-level, the step's launches, traced kernels and busy time).
+
 The script imports torch, numpy and the port (src/repro_torch, or
-TREE/src with --cache-ab) only, and for the relation_attend and
-hgt_attend rows the benchmark's graph generator and byte counts
-(bench/families/rgat.py, bench/families/hgt.py) and the rgat3-igbh and
-hgt3-igbh configurations.
+TREE/src with --cache-ab) only, and for the relation_attend, hgt_attend
+and gat_attend rows the benchmark's graph generators and byte counts
+(bench/families/rgat.py, bench/families/hgt.py, bench/rmat.py,
+bench/inputs.py) and the rgat3-igbh, hgt3-igbh and gat3-igbs
+configurations.
 """
 from __future__ import annotations
 
@@ -2548,6 +2564,196 @@ def hgt_step_launches(torch, np, batch, blocks, cfg) -> dict:
            "hgt_attend_roofline_pct": 100.0 * nbytes / HBM_BYTES_PER_S
            / (attend_ms / 1e3),
            "profile": profile}
+    emit(row)
+    return row
+
+
+#: `gat_attend` against the plain formulas in float64, by norm (tests/
+#: test_torch_gat_attend.py's CARD_REL)
+GAT_ATTEND_REL = 1e-5
+#: the `gat3-igbs` batch of the gat_attend rows: its seeds' draw
+GAT_BATCH = dict(seeds=1024, seed=2**31 + 11)
+
+
+def gat_batch(torch, np):
+    """One GAT_BATCH batch of the `gat3-igbs` cell: its graph drawn on the
+    card by bench/rmat.py, its seeds from the b1024 mix's pool, its hops
+    sampled by `host_sample_blocks` as the loader samples them, random
+    features for its rows and random labels.  Returns (feats (U, D) and
+    hop_idx on the card, labels, the configuration)."""
+    sys.path.insert(0, str(ROOT))
+    from bench import inputs, rmat
+    from repro_torch.graph.csr import CSRGraph
+    from repro_torch.models.gnn import hop_indices
+    from repro_torch.sampling.neighbor import host_sample_blocks
+    cfg = json.loads((ROOT / "bench" / "configs" / "gat3-igbs.json")
+                     .read_text())
+    mix = json.loads((ROOT / "bench" / "traffic" / "b1024.json").read_text())
+    g, dev = cfg["graph"], torch.device("cuda")
+    indptr, indices = rmat.rmat_csr(
+        cfg["nodes"], cfg["edges"], a=g["a"], b=g["b"], c=g["c"],
+        generator=inputs.generator(dev, g["seed"]), device=dev)
+    graph = CSRGraph(indptr=indptr, indices=indices,
+                     num_nodes=len(indptr) - 1, feature_dim=cfg["in_dim"],
+                     name=cfg["name"])
+    rng = np.random.default_rng(GAT_BATCH["seed"])
+    seeds = rng.choice(inputs.seed_pool(indptr, mix["seed_pool"], g["seed"]),
+                       GAT_BATCH["seeds"], replace=False)
+    blocks = host_sample_blocks(graph, seeds, cfg["fanouts"], rng)
+    hop_idx = [torch.from_numpy(i).to(dev) for i in hop_indices(blocks)]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    feats = torch.randn((len(blocks.all_nodes), cfg["in_dim"]),
+                        generator=gen, device="cuda")
+    y = torch.randint(0, cfg["num_classes"], (len(seeds),), generator=gen,
+                      device="cuda")
+    return feats, hop_idx, y, cfg
+
+
+def gat_attend_bytes(n: int, f: int, H: int, C: int) -> tuple[int, int]:
+    """The least bytes `gat_attend` moves for n destinations of f slots,
+    forward and backward: zd and zn read once, out and the softmax's max
+    and sum written; zd, zn, out's gradient and those statistics read,
+    dzd and dzn written (the attention vectors and their gradients
+    besides; the backward's per-block partials, scratch, not counted)."""
+    row, stats, attn = 4 * H * C, 4 * 2 * H, 4 * 2 * H * C
+    fwd = n * (1 + f) * row + n * row + n * stats + attn
+    bwd = n * (2 + f) * row + n * stats + n * (1 + f) * row + 2 * attn
+    return fwd, bwd
+
+
+def kernel_gat_attend(torch, timer, np) -> dict:
+    """`gat_attend` (GAT's attention over the fanout) at each of the 6
+    layer-levels of one GAT_BATCH batch of the `gat3-igbs` cell, on the
+    zd and zn that `GNN._layer` hands it (default initialisation) and a
+    random gradient of its output: out, dzd, dzn and both attention
+    vectors' gradients each within GAT_ATTEND_REL of the float64 plain
+    formulas by norm and equal to the float32 plain version (the eager
+    chain under autograd) on the card to the bit, bit-equal over two runs.  Per level the
+    forward and the backward (its two launches) timed beside
+    `gat_attend_bytes`' bound and the eager chain's forward + backward.
+    Then one whole GAT `sgd_step` on the batch (`gat_step_launches`)."""
+    from repro_torch.kernels import gat_attend as ga
+    from repro_torch.models import gnn
+    feats, hop_idx, y, cfg = gat_batch(torch, np)
+    model = gnn.GNN(gnn.GNNConfig(
+        model="gat", in_dim=cfg["in_dim"], hidden_dim=cfg["hidden_dim"],
+        num_classes=cfg["num_classes"], fanouts=tuple(cfg["fanouts"]),
+        num_heads=cfg["num_heads"]), device="cuda")
+    calls, real = [], gnn.gat_attend
+
+    def recorded(*inputs):
+        calls.append(tuple(t.detach() for t in inputs))
+        return real(*inputs)
+    with mock.patch.object(gnn, "gat_attend", recorded), torch.no_grad():
+        model(feats, hop_idx)
+    L = len(cfg["fanouts"])
+    levels = [(t, lvl) for t in range(L) for lvl in range(L - t)]
+    check(len(calls) == len(levels), f"{len(calls)} gat_attend calls a "
+          f"forward, {len(levels)} layer-levels")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for (layer, level), inputs in zip(levels, calls):
+        n, f, H, C = inputs[1].shape
+        g = torch.randn((n, H * C), generator=gen, device="cuda")
+
+        def run(attend=ga.gat_attend):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            out = attend(*leaves)
+            return (out.detach(), *torch.autograd.grad(out, leaves, g))
+
+        got, again = run(), run()
+        plain = run(ga.attend_ref)
+        wide = [t.double() for t in inputs]
+        want = (ga.attend_ref(*wide),
+                *ga.attend_backward_ref(g.double(), *wide))
+        torch.cuda.synchronize()
+        names = ("out", "dzd", "dzn", "d_attn_src", "d_attn_dst")
+        rel = {k: float((a.double() - b).norm() / b.norm())
+               for k, a, b in zip(names, got, want)}
+        plain_diff = {k: int((a != b).sum())
+                      for k, a, b in zip(names, got, plain)}
+        where = f"gat_attend layer {layer} level {level}"
+        check(max(rel.values()) < GAT_ATTEND_REL, f"{where} {rel}")
+        check(not any(plain_diff.values()),
+              f"{where}: elements unlike the eager chain's {plain_diff}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{where}: two runs differ")
+        err = max(float((a.double() - b).abs().max())
+                  for a, b in zip(got, want))
+        del got, again, plain, wide, want
+        out, stats = ga._forward(*inputs)
+        fwd_ms = timer(lambda: ga._forward(*inputs))
+        bwd_ms = timer(lambda: ga._backward(g, *inputs, stats))
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        plain_ms = timer(lambda: torch.autograd.grad(
+            ga.attend_ref(*leaves), leaves, g))
+        fwd_bytes, bwd_bytes = gat_attend_bytes(n, f, H, C)
+        row = {"phase": "kernel", "name": "gat_attend", "layer": layer,
+               "level": level, "shape": [n, f, H, C], "max_abs_err": err,
+               "rel_err": rel, "plain_diff": plain_diff,
+               "kernel_ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms,
+               "bwd_ms": bwd_ms, "plain_ms": plain_ms, "library_ms": None,
+               "fwd_bound_ms": bound(fwd_bytes)["bound_ms"],
+               "bwd_bound_ms": bound(bwd_bytes)["bound_ms"],
+               **bound(fwd_bytes + bwd_bytes)}
+        emit(row)
+        rows.append(row)
+        del out, stats, leaves, g
+    del calls
+    step = summary(rows)
+    step.update({key: sum(r[key] for r in rows)
+                 for key in ("fwd_ms", "bwd_ms", "fwd_bound_ms",
+                             "bwd_bound_ms")})
+    emit({"phase": "kernel", "name": "gat_attend_levels", **step})
+    torch.cuda.empty_cache()
+    row = gat_step_launches(torch, model, feats, hop_idx, y, cfg)
+    step.update({f"step_{key}": row[key] for key in (
+        "launches", "kernels", "gat_attend_ms", "busy_ms",
+        "eager_busy_ms")})
+    return step
+
+
+def gat_step_launches(torch, model, feats, hop_idx, y, cfg) -> dict:
+    """One whole GAT `sgd_step` on the batch: `gat_attend` launched forward
+    and backward once for each of the step's layer-levels; then the
+    device time of its forward and backward (`rgat_step_profile`), where
+    the traced `gat_attend` kernels have to be those launches, beside the
+    same step with the eager chain (`attend_ref`) in the kernels' place;
+    the two steps' parameters have to be equal to the bit."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gat_attend import attend_ref
+    from repro_torch.models import gnn
+    L = len(cfg["fanouts"])
+    levels = L * (L + 1) // 2
+    _build.reset_launches()
+    gnn.sgd_step(model, feats, hop_idx, y, cfg["lr"])
+    torch.cuda.synchronize()
+    got = {key: _build.LAUNCHES[key]
+           for key in ("gat_attend_fwd", "gat_attend_bwd")}
+    check(got == {key: levels for key in got},
+          f"launches {got}: gat_attend once per layer-level ({levels})")
+    kernels = 2 * levels
+    profile = rgat_step_profile(torch, lambda: model.loss(
+        feats, hop_idx, y).backward(), named=("gat_attend",))
+    traced = profile["kernel_count_by_class"].get("gat_attend", 0)
+    check(traced == kernels, f"{traced} gat_attend kernels traced a step, "
+          f"{kernels} launched")
+    eager_model = gnn.GNN(model.cfg, device="cuda")
+    eager_model.load_reference_params(model.param_tree())
+    with mock.patch.object(gnn, "gat_attend", attend_ref):
+        eager = rgat_step_profile(torch, lambda: eager_model.loss(
+            feats, hop_idx, y).backward(), named=("gat_attend",))
+        gnn.sgd_step(eager_model, feats, hop_idx, y, cfg["lr"])
+    gnn.sgd_step(model, feats, hop_idx, y, cfg["lr"])
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 eager_model.parameters())),
+          "a GAT step through gat_attend differs from the eager chain's")
+    row = {"phase": "kernel", "name": "gat_attend_step", "card": card_line(),
+           "launches": got, "kernels": kernels,
+           "gat_attend_ms": profile["kernel_ms_by_class"]["gat_attend"],
+           "busy_ms": profile["busy_ms"], "eager_busy_ms": eager["busy_ms"],
+           "profile": profile, "eager_profile": eager}
     emit(row)
     return row
 
@@ -5920,6 +6126,12 @@ SOURCES = {
                    "scatter max and sums",
                    "within 1e-5 of the float64 plain formulas by norm; "
                    "bit-equal over two runs"),
+    "gat_attend": ("src/repro_torch/kernels/csrc/gat_attend.cu",
+                   "none (the JAX package leaves GAT's attention to XLA): "
+                   "models/gnn.py GNN._layer's eager chain, now "
+                   "kernels/gat_attend.py attend_ref",
+                   "within 1e-5 of the float64 plain formulas and of the "
+                   "float32 eager chain by norm; bit-equal over two runs"),
 }
 
 
@@ -5948,6 +6160,9 @@ def main() -> int:
     parser.add_argument("--hgt-attend", action="store_true",
                         help="instead of the run, build the kernels and run "
                         "phase 2's hgt_attend rows alone")
+    parser.add_argument("--gat-attend", action="store_true",
+                        help="instead of the run, build the kernels and run "
+                        "phase 2's gat_attend rows alone")
     parser.add_argument("--tier-ab", nargs="?", const=".", metavar="TREE",
                         help="instead of the run, phases 3 and 4 against "
                         "the package of TREE, a directory inside this "
@@ -5994,6 +6209,9 @@ def main() -> int:
     if args.hgt_attend:
         kernel_hgt_attend(torch, Timer(torch), np)
         return 0
+    if args.gat_attend:
+        kernel_gat_attend(torch, Timer(torch), np)
+        return 0
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {"segment_mean": kernel_segment_mean(torch, timer, gen),
@@ -6007,7 +6225,8 @@ def main() -> int:
                 "flash_attention": kernel_flash_attention(torch, timer, gen),
                 "flash_combine": kernel_flash_combine(torch, timer, gen),
                 "relation_attend": kernel_relation_attend(torch, timer, np),
-                "hgt_attend": kernel_hgt_attend(torch, timer, np)}
+                "hgt_attend": kernel_hgt_attend(torch, timer, np),
+                "gat_attend": kernel_gat_attend(torch, timer, np)}
     cache = {case: dict(zip(("cache_access", "cache_bucket"),
                             kernel_cache_access(torch, timer, np, **kw)))
              for case, kw in CACHE_ROWS}

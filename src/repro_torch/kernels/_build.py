@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("segment_mean", "tiered_gather", "cache_access",
            "frontier_gather", "flash_attention", "relation_attend",
-           "hgt_attend")
+           "hgt_attend", "gat_attend")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +39,8 @@ LAUNCHES: dict[str, int] = dict.fromkeys(
      "cache_access", "tiered_gather_unique", "frontier_gather",
      "frontier_read", "flash_attention", "flash_combine",
      "relation_attend_fwd", "relation_attend_bwd", "fold_scores_fwd",
-     "fold_scores_bwd", "hgt_attend_fwd", "hgt_attend_bwd"), 0)
+     "fold_scores_bwd", "hgt_attend_fwd", "hgt_attend_bwd",
+     "gat_attend_fwd", "gat_attend_bwd"), 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -24,6 +24,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.gat_attend import gat_attend
 from repro_torch.models.common import ParamDef, init_params
 from repro_torch.sampling.neighbor import SampledBlocks
 
@@ -165,12 +166,8 @@ class GNN(nn.Module):
             hd = p["w_nbr"].shape[1] // H
             zd = (x_dst @ p["w_self"]).reshape(n, H, hd)
             zn = (x_nbr @ p["w_nbr"]).reshape(n, f, H, hd)
-            es = (zd * p["attn_src"]).sum(-1)                  # (n, H)
-            en = (zn * p["attn_dst"]).sum(-1)                  # (n, f, H)
-            e = F.leaky_relu(es[:, None, :] + en, 0.2)
-            a = torch.softmax(e, dim=1)
-            agg = (a[..., None] * zn).sum(dim=1)               # (n, H, hd)
-            return F.elu(agg.reshape(n, H * hd) + p["b"])
+            agg = gat_attend(zd, zn, p["attn_src"], p["attn_dst"])
+            return F.elu(agg + p["b"])
         return F.relu(x_dst @ p["w_self"] + x_nbr_mean @ p["w_nbr"] + p["b"])
 
     def forward(self, feats: torch.Tensor,
